@@ -1,20 +1,27 @@
 """stark_tpu_torch — the STARK/FRI prover of :mod:`stark_tpu` on PyTorch and CUDA.
 
-A port of the JAX package's device-resident prover to one torch device.
-The host protocol layers (field, polynomials, Merkle, transcript, FRI and
-STARK logic, models) are imported from :mod:`stark_tpu`, which needs no
-JAX for them; only what the JAX package couples to JAX is ported here:
+A self-contained port of the JAX package's prover to one torch device: it
+imports torch and nothing of ``stark_tpu`` or JAX.
 
-* :mod:`stark_tpu_torch.ops` — the limb format, field arithmetic, NTT
-  plans, FRI fold, device Merkle trees, the backend seam and the prover
-  core; the hand-written CUDA kernels (``csrc/``) are the four-step NTT
-  passes and the Blake2b-256 leaf and level kernels;
-* :class:`stark_tpu_torch.stark.TorchStark` and
-  :class:`stark_tpu_torch.fri.TorchFri` — the protocol overrides;
+* the host protocol layers — ``params``, ``field``, ``poly``, ``mpoly``,
+  ``ntt``, ``geometric``, ``hostops``, ``hashing``, ``merkle``,
+  ``serialization``, ``proof_stream``, ``rng``, ``utils`` — and the host
+  C library (:mod:`stark_tpu_torch.native`, sources in ``csrc/host/``,
+  built with the system C compiler at first use);
+* :class:`stark_tpu_torch.stark.Stark` and :class:`stark_tpu_torch.fri.Fri`:
+  the host prover and verifier, and with a
+  :class:`~stark_tpu_torch.ops.backend.TorchBackend` the device-resident
+  prover, whose FRI commit phase runs as the fused cascade with
+  Fiat-Shamir on the device;
+* :mod:`stark_tpu_torch.ops` — the limb format, plain torch field ops,
+  NTT plans, fold, Blake2b tree and Shake256, the backend seam and the
+  prover core; the hand-written CUDA kernels (``csrc/*.cu``) are the
+  four-step NTT passes, the Blake2b-256 leaf and level kernels, the FRI
+  fold and the Fiat-Shamir round;
 * :mod:`stark_tpu_torch.models.fibonacci` and :mod:`stark_tpu_torch.cli`.
 
-Nothing in this package imports JAX.  Proofs are byte-identical to the
-host prover's on the same seeded randomness.
+Proofs are byte-identical to the JAX package's host prover on the same
+seeded randomness.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -48,8 +48,8 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
 
-    from stark_tpu.field import FieldElement
-    from stark_tpu.params import GENERATOR, P
+    from .field import FieldElement
+    from .params import GENERATOR, P
 
     if args.command == "info":
         import torch
@@ -72,7 +72,7 @@ def main(argv=None) -> int:
         except ValueError:
             parser.error(f"{what} must be an integer, got {text!r}")
 
-    from stark_tpu.rng import DeterministicRandom, os_random_bytes
+    from .rng import DeterministicRandom, os_random_bytes
 
     from .models.fibonacci import FibonacciStark
 

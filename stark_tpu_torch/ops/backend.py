@@ -5,7 +5,7 @@ routes the prover's numeric stages to one explicit torch device:
 
 * ``rs_extend`` / ``rs_restrict`` — coset NTT evaluation / interpolation;
 * ``poly_multiply`` — NTT products (trace interpolation chirps);
-* ``fri_fold`` — the FRI fold;
+* ``fri_fold`` — the FRI fold (the K6 kernel on the card);
 * ``make_prover_core`` — the device-resident prover core
   (:mod:`stark_tpu_torch.ops.device_prover`).
 
@@ -21,13 +21,11 @@ from typing import List, Sequence
 
 import torch
 
-from stark_tpu.ops.limbs import pack, unpack
-from stark_tpu.params import P
-
+from ..params import P
 from . import field_ops as fo
-from . import fold as fold_ops
+from .cuda_fold import fri_fold
 from .cuda_ntt import CUDA_NTT_MIN_SIZE, get_cuda_plan
-from .limbs import from_numpy, to_numpy
+from .limbs import _fold_tables, from_numpy, mont_tensor, pack, to_numpy, unpack
 from .ntt import get_plan
 
 
@@ -75,7 +73,7 @@ class TorchBackend:
         """Evaluate the polynomial (coeffs, lowest first) over the coset
         {offset * omega_n^i}; returns n plain residues."""
         if n < self.min_device_size:
-            from stark_tpu.ntt import NTT
+            from ..ntt import NTT
 
             return NTT(n).coset_evaluate(list(coeffs), offset)
         out = best_plan(n, self.device).coset_forward(self._upload_mont(coeffs, n), offset % P)
@@ -85,7 +83,7 @@ class TorchBackend:
         """Inverse of :meth:`rs_extend`: coset evaluations -> coefficients."""
         n = len(evals)
         if n < self.min_device_size:
-            from stark_tpu.ntt import NTT
+            from ..ntt import NTT
 
             return NTT(n).coset_interpolate(list(evals), offset)
         out = best_plan(n, self.device).coset_inverse(self._upload_mont(evals, n), offset % P)
@@ -98,7 +96,7 @@ class TorchBackend:
         result_size = len(a) + len(b) - 1
         n = 1 << (result_size - 1).bit_length()
         if n < self.min_device_size:
-            from stark_tpu.ntt import poly_multiply
+            from ..ntt import poly_multiply
 
             return poly_multiply(list(a), list(b))
         plan = best_plan(n, self.device)
@@ -108,7 +106,13 @@ class TorchBackend:
         return unpack(to_numpy(fo.from_mont(prod)))[:result_size]
 
     def fri_fold(self, codeword: Sequence[int], alpha: int, offset: int, omega: int) -> List[int]:
-        return fold_ops.fri_fold(codeword, alpha, offset, omega, self.device)
+        """One FRI fold of a host codeword on the device: plain residues
+        in and out."""
+        half = len(codeword) // 2
+        cw = fo.to_mont(from_numpy(pack(list(codeword)), self.device))
+        a = mont_tensor([alpha % P], self.device)
+        inv_table = from_numpy(_fold_tables(offset % P, omega % P, half), self.device)
+        return unpack(to_numpy(fo.from_mont(fri_fold(cw, a, inv_table))))
 
     def rescue_hash(self, inputs: Sequence[int]) -> List[int]:
         raise NotImplementedError("batched Rescue is not ported to the torch backend yet")

@@ -28,9 +28,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from stark_tpu.field import FieldElement
-from stark_tpu.params import NUM_LIMBS, P
-
+from ..field import FieldElement
+from ..params import NUM_LIMBS, P
 from . import field_ops as fo
 from . import kernels
 from .limbs import _bit_reverse_indices, _mont_pack, _power_table, from_numpy

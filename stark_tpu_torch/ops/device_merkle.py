@@ -4,7 +4,7 @@ Counterpart of :mod:`stark_tpu.ops.device_merkle`.  A commitment hashes
 the codeword's ``bincode(FieldElement)`` leaves and every interior level
 on the device; only the TAIL_WIDTH-wide level (32 KB), the root and the
 opened siblings cross to the host.  Roots and auth paths are byte-identical
-to :class:`stark_tpu.merkle.MerkleTree` over the same codeword.
+to :class:`stark_tpu_torch.merkle.MerkleTree` over the same codeword.
 
 This module holds the plain PyTorch Blake2b (:func:`blake2b256_single_block`
 and the leaf/level functions built on it), which is what the CUDA kernels
@@ -25,8 +25,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from stark_tpu.hashing import merkle_level
-
+from ..hashing import merkle_level
 from . import field_ops as fo
 from .limbs import to_numpy
 
@@ -55,7 +54,8 @@ _SIGMA = (
 TAIL_WIDTH = 1024
 
 #: smallest codeword the device tree is used for (below it the host's
-#: native-C tree over the fetched digits is used)
+#: native-C tree over the fetched digits is used); read at call time, so
+#: tests may lower it
 DEVICE_TREE_MIN = 8192
 
 _U32 = 0xFFFFFFFF
@@ -180,7 +180,7 @@ def roots_batch(trees) -> List[bytes]:
 class DeviceMerkleTree:
     """Merkle tree whose levels down to TAIL_WIDTH live on the device.
 
-    Same surface as :class:`stark_tpu.merkle.MerkleTree` (``root``,
+    Same surface as :class:`stark_tpu_torch.merkle.MerkleTree` (``root``,
     ``open``, ``num_leaves``) plus the batched-fetch hooks the prover
     uses: ``gather_siblings_async`` / ``absorb_siblings``, ``tail_async``
     / ``absorb_tail``, ``root_words_async`` / ``set_root`` and
@@ -191,6 +191,20 @@ class DeviceMerkleTree:
         if n < 2 * TAIL_WIDTH or n & (n - 1):
             raise ValueError(f"device tree needs a power-of-two codeword >= {2 * TAIL_WIDTH}")
         levels, root_words = tree_arrays_with_root(mont, n)
+        self._init_from_arrays(n, levels, None)
+        self._root_words = root_words
+
+    @classmethod
+    def from_cascade(cls, n: int, levels, root: bytes) -> "DeviceMerkleTree":
+        """Wrap the level arrays built inside the fused FRI cascade; the
+        root was hashed on the device and fetched with the round-roots
+        batch, so ``.root`` never blocks on the tail level."""
+        tree = cls.__new__(cls)
+        tree._init_from_arrays(n, levels, root)
+        tree._root_words = None
+        return tree
+
+    def _init_from_arrays(self, n: int, levels, root) -> None:
         self.num_leaves = n
         # widths n .. 2*TAIL stay on the device; the TAIL-wide level is
         # fetched lazily (32 KB) and the top finishes on the host
@@ -200,8 +214,7 @@ class DeviceMerkleTree:
         self._log_n = n.bit_length() - 1
         self._log_tail_gap = self._log_n - TAIL_WIDTH.bit_length() + 1
         self._sib_cache: Dict[tuple, bytes] = {}
-        self._root_bytes = None
-        self._root_words = root_words
+        self._root_bytes = root
 
     def tail_async(self):
         """The (8, TAIL_WIDTH) tail level if it still needs fetching."""

@@ -10,12 +10,12 @@ pipeline
 and crosses to the host only as the handful of opened values and
 auth-path siblings (batched into one fetch per phase, see
 :func:`fetch_absorb`), or as a digit matrix once a codeword is small.
-Commitments hash on the device (:mod:`stark_tpu_torch.ops.device_merkle`).
+Commitments hash on the device (:mod:`stark_tpu_torch.ops.device_merkle`);
+the large FRI rounds run as the fused commit cascade
+(:meth:`DeviceProverCore.fri_cascade`), with Fiat-Shamir on the device.
 
-Not in this module yet: the fused FRI commit cascade (``fri_cascade``),
-``extend_mont`` (device trace interpolation) and ``extend_codeword_be17``;
-the torch prover takes the per-round FRI loop, host interpolation and the
-host randomizer pack instead.
+Not in this module yet: ``extend_mont`` (device trace interpolation); the
+prover interpolates the trace on the host.
 """
 
 from __future__ import annotations
@@ -26,15 +26,16 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from stark_tpu.merkle import MerkleTree
-from stark_tpu.ops.limbs import pack
-from stark_tpu.params import NUM_LIMBS, P
-
+from ..merkle import MerkleTree
+from ..params import NUM_LIMBS, P
+from . import device_merkle
 from . import field_ops as fo
 from .backend import best_plan
-from .device_merkle import DEVICE_TREE_MIN, TAIL_WIDTH, DeviceMerkleTree, plain_digits
-from .fold import fold_mont
-from .limbs import from_numpy, mont_tensor, to_numpy
+from .cuda_fold import fri_fold
+from .cuda_fs import fs_round
+from .device_fs import APPENDED_BYTES
+from .device_merkle import TAIL_WIDTH, DeviceMerkleTree, plain_digits, tree_arrays_with_root
+from .limbs import from_numpy, mont_tensor, pack, to_numpy
 
 
 # ---------------------------------------------------------------------------
@@ -247,20 +248,31 @@ class DeviceProverCore:
     # -- RS extension ------------------------------------------------------
 
     def extend(self, coeffs) -> torch.Tensor:
-        """Coefficients (plain ints lowest first, or a packed (8, m) uint32
-        limb array) -> (8, n) Montgomery codeword over the coset
-        {offset * omega^i}; the zero padding to n happens on the device."""
-        packed = coeffs if isinstance(coeffs, np.ndarray) else pack(list(coeffs))
-        m = packed.shape[1]
+        """Coefficients (plain ints lowest first, a packed (8, m) uint32
+        limb array, or an (8, m) int32 plain limb tensor on the device) ->
+        (8, n) Montgomery codeword over the coset {offset * omega^i}; the
+        zero padding to n happens on the device."""
+        if isinstance(coeffs, torch.Tensor):
+            dev = coeffs.to(self.device)
+        else:
+            packed = coeffs if isinstance(coeffs, np.ndarray) else pack(list(coeffs))
+            dev = from_numpy(packed, self.device)
+        m = int(dev.shape[1])
         if m > self.n:
             raise ValueError("coefficient vector longer than the domain")
-        dev = from_numpy(packed, self.device)
         if m < self.n:
             dev = torch.cat([dev, torch.zeros((NUM_LIMBS, self.n - m), dtype=torch.int32, device=self.device)], dim=1)
         return self.plan.apply(fo.to_mont(dev), self._fwd_tabs, False)
 
     def extend_codeword(self, coeffs: Sequence[int]) -> DeviceCodeword:
         return DeviceCodeword(self.extend(coeffs), self)
+
+    def extend_codeword_be17(self, raw: bytes) -> DeviceCodeword:
+        """Randomizer path: concatenated 17-byte big-endian rng chunks ->
+        extended codeword, with the byte -> limb unpack and the mod-p
+        reduction on the device (same codeword as
+        ``extend_codeword(pack_be17(raw))``)."""
+        return DeviceCodeword(self.extend(fo.be17_device_limbs(raw, self.device)), self)
 
     def restrict_iszero(self, cw_mont: torch.Tensor) -> np.ndarray:
         """Codeword -> is-zero bitmap of its coefficient vector."""
@@ -278,7 +290,7 @@ class DeviceProverCore:
         the device for large codewords, by the host's native C over the
         fetched digits below DEVICE_TREE_MIN.  Roots and paths are
         byte-identical either way."""
-        if len(dcw) >= max(DEVICE_TREE_MIN, 2 * TAIL_WIDTH) and dcw._digits is None:
+        if len(dcw) >= max(device_merkle.DEVICE_TREE_MIN, 2 * TAIL_WIDTH) and dcw._digits is None:
             return DeviceMerkleTree(dcw.mont)
         return MerkleTree.from_digits(dcw.digits)
 
@@ -294,9 +306,51 @@ class DeviceProverCore:
         return tab
 
     def fold(self, dcw: DeviceCodeword, alpha: int, offset: int, omega: int) -> DeviceCodeword:
-        """One FRI fold round on the device."""
+        """One FRI fold round on the device (the K6 kernel on the card)."""
         inv = self._inv_table(offset, omega, len(dcw) // 2)
-        return DeviceCodeword(fold_mont(dcw.mont, mont_tensor([alpha % P], self.device), inv), self)
+        alpha_mont = mont_tensor([alpha % P], self.device)
+        return DeviceCodeword(fri_fold(dcw.mont.contiguous(), alpha_mont, inv), self)
+
+    # -- fused FRI commit cascade (on-device Fiat-Shamir) -------------------
+
+    def fri_cascade(self, mont: torch.Tensor, prefix_body: bytes, count0: int, offset: int, omega: int,
+                    rounds: int):
+        """``rounds`` fused FRI commit rounds.  Per round, on the device's
+        current stream: Merkle tree to the root (K4, K5) -> ``fs_round``
+        (bincode hex root appended to the transcript body, Shake256
+        Fiat-Shamir, fold challenge alpha) -> ``fri_fold`` (K6).  Nothing
+        waits for the device until the caller fetches the stacked roots
+        once; the fold tables are built before the first round enqueues.
+
+        ``prefix_body`` is the serialized proof stream WITHOUT its leading
+        u64 count (the count changes with every push, so round r hashes
+        with ``count0 + r + 1``); transcript semantics are the reference's
+        exactly (proof_stream.rs:36-58, fri.rs:100-146).
+
+        Returns ``(per_round, roots, final_mont)``: ``per_round[r]`` is
+        ``(codeword_mont_r, tree_levels_r)``, ``roots`` an (rounds, 8)
+        int32 tensor of root words, ``final_mont`` the codeword after the
+        last fused fold."""
+        n0 = int(mont.shape[1])
+        tables = []
+        o, w = offset % P, omega % P
+        for r in range(rounds):
+            tables.append(self._inv_table(o, w, (n0 >> r) // 2))
+            o, w = o * o % P, w * w % P
+        body = torch.zeros(len(prefix_body) + APPENDED_BYTES * rounds, dtype=torch.uint8, device=self.device)
+        body[: len(prefix_body)] = torch.from_numpy(np.frombuffer(prefix_body, dtype=np.uint8).copy())
+        body_len = len(prefix_body)
+        cur = mont.contiguous()
+        per_round = []
+        roots = []
+        for r in range(rounds):
+            levels, root = tree_arrays_with_root(cur, n0 >> r)
+            alpha = fs_round(body, body_len, count0 + r + 1, root.contiguous())
+            body_len += APPENDED_BYTES
+            per_round.append((cur, levels))
+            roots.append(root)
+            cur = fri_fold(cur, alpha, tables[r])
+        return tuple(per_round), torch.stack(roots), cur
 
     # -- x^shift columns ---------------------------------------------------
 

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under ``stark_tpu_torch/csrc/`` are compiled at first use by
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-loaded with ``ctypes``.  The library lands in ``build/stark_kernels/`` at
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The library lands in ``build/stark_kernels/`` at
 the repository root, named by a hash of the sources, so an edit rebuilds
 and an unchanged tree reuses the last build.  Nothing here runs when the
 module is imported, so a machine without ``nvcc`` or a card can still
@@ -29,25 +30,30 @@ from typing import Dict
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("field.cuh", "ntt.cu", "merkle.cu")
+_SOURCES = ("field.cuh", "ntt.cu", "merkle.cu", "fold.cu", "fs.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stark_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     "stark_ntt_pass1": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
     "stark_ntt_pass2": [_P, _P, _I, _I, _P, _P, _P, _P],
     "stark_merkle_leaves": [_P, _P, _I64, _P],
     "stark_merkle_level": [_P, _P, _I64, _P],
+    "stark_fri_fold": [_P, _P, _P, _P, _I64, _P],
+    "stark_fs_round": [_P, _I64, _U64, _P, _P, _P],
 }
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0}
+LAUNCHES: Dict[str, int] = {
+    "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "fri_fold": 0, "fs_round": 0,
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -88,16 +94,30 @@ def build() -> Path:
         build_info.update(path=str(so), seconds=0.0, cached=True)
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    units = [(_CSRC / s, _BUILD_DIR / f"{so.stem}.{os.getpid()}.{Path(s).stem}.o")
+             for s in _SOURCES if s.endswith(".cu")]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(_CSRC / s) for s in _SOURCES if s.endswith(".cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    try:
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in units]
+        outs = [p.communicate() for p in procs]
+        failed = [f"{src.name} ({p.returncode}):\n{out}\n{err}"
+                  for (src, _), p, (out, err) in zip(units, procs, outs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj in units)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    finally:
+        for _, obj in units:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
-    build_info.update(path=str(so), seconds=seconds, cached=False, ptxas=proc.stderr)
+    seconds = time.perf_counter() - t0
+    build_info.update(path=str(so), seconds=seconds, cached=False, ptxas="".join(err for _, err in outs))
     return so
 
 

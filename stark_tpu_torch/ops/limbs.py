@@ -11,9 +11,10 @@ are ``(8, w)`` ``int32`` tensors holding the u32 word bits.
 operations for it.  Plain field arithmetic widens to ``int64``
 (:mod:`stark_tpu_torch.ops.field_ops`).
 
-The numpy table helpers below are copies of the ones in
-``stark_tpu/ops/ntt.py`` and ``stark_tpu/ops/fold.py``: those modules
-import JAX at the top, which this package never does.
+The numpy helpers (``pack``, ``unpack``, ``pack_be17``, ``limbs_of`` and
+the table builders) are the JAX package's host-side limb code
+(``stark_tpu/ops/limbs.py``, ``ops/ntt.py``, ``ops/fold.py``), carried
+here so that the port needs nothing from that package.
 """
 
 from __future__ import annotations
@@ -24,8 +25,72 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from stark_tpu.ops.limbs import pack
-from stark_tpu.params import P, R_MOD_P
+from ..params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, P, R_MOD_P
+
+
+def pack(values: Sequence[int]) -> np.ndarray:
+    """Python ints (canonical residues) -> uint32 array of shape (8, N)."""
+    n = len(values)
+    buf = bytearray(16 * n)
+    for i, v in enumerate(values):
+        buf[16 * i : 16 * i + 16] = int(v % P).to_bytes(16, "little")
+    u16 = np.frombuffer(bytes(buf), dtype="<u2").reshape(n, NUM_LIMBS)
+    return np.ascontiguousarray(u16.T).astype(np.uint32)
+
+
+def unpack(arr) -> List[int]:
+    """uint32 (8, N) limb array -> list of Python ints (through a
+    little-endian byte buffer: one transpose + one int.from_bytes each)."""
+    a = np.asarray(arr, dtype=np.uint32)
+    if a.ndim == 1:
+        a = a[:, None]
+    n = a.shape[-1]
+    u16 = np.ascontiguousarray((a & LIMB_MASK).T.astype("<u2"))  # (N, 8)
+    buf = u16.tobytes()
+    return [int.from_bytes(buf[16 * i : 16 * i + 16], "little") for i in range(n)]
+
+
+@lru_cache(maxsize=1)
+def _b0_table() -> np.ndarray:
+    """(256, 4) uint64 digit rows of ``b << 128 mod p`` for each byte b."""
+    tab = np.empty((256, 4), np.uint64)
+    for b in range(256):
+        v = (b << 128) % P
+        for i in range(4):
+            tab[b, i] = (v >> (32 * i)) & 0xFFFFFFFF
+    return tab
+
+
+def pack_be17(raw: bytes) -> np.ndarray:
+    """Concatenated 17-byte big-endian chunks -> (8, N) uint32 limb array
+    of ``int.from_bytes(chunk, "big") % P`` per chunk, vectorized.
+
+    Reduction: v = b0 * 2^128 + v0 with b0 the leading byte.  v0 < 2^128
+    < 2p needs one conditional subtraction, and b0 * 2^128 mod p comes
+    from a 256-entry digit table; their mod-p sum is the canonical
+    residue.  The device version is
+    :func:`stark_tpu_torch.ops.field_ops.be17_device_limbs`."""
+    from .. import hostops as ho
+
+    a = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 17)
+    n = a.shape[0]
+    b0 = a[:, 0]
+    le = np.ascontiguousarray(a[:, 1:][:, ::-1])  # v0, little-endian bytes
+    d = le.view("<u4")  # (N, 4) 32-bit digits
+    v0 = np.ascontiguousarray(d.T).astype(np.uint64)  # (4, N)
+    t = np.concatenate([v0, np.zeros((1, n), np.uint64)], axis=0)
+    v0c = ho._canonicalize(t)
+    term = np.ascontiguousarray(_b0_table()[b0].T)  # (4, N)
+    out32 = ho.add(v0c, term)  # canonical (4, N) 32-bit digit rows
+    out = np.empty((8, n), np.uint32)
+    out[0::2] = (out32 & np.uint64(0xFFFF)).astype(np.uint32)
+    out[1::2] = (out32 >> np.uint64(16)).astype(np.uint32)
+    return out
+
+
+def limbs_of(value: int) -> List[int]:
+    """Static little-endian 16-bit limbs of a Python int (for constants)."""
+    return [(int(value) >> (LIMB_BITS * l)) & LIMB_MASK for l in range(NUM_LIMBS)]
 
 
 def from_numpy(arr: np.ndarray, device) -> torch.Tensor:

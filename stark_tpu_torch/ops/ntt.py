@@ -19,8 +19,8 @@ from functools import lru_cache
 
 import torch
 
-from stark_tpu.field import FieldElement
-from stark_tpu.params import NUM_LIMBS, P
+from ..field import FieldElement
+from ..params import NUM_LIMBS, P
 
 from . import field_ops as fo
 from .limbs import _bit_reverse_indices, _power_table, mont_tensor

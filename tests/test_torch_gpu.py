@@ -7,18 +7,22 @@ tests/conftest.py imports) need not be installed:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 
+The host references are the port's own host prover and host FRI (no
+backend), so these tests import nothing of JAX or the JAX package.
+
 Tolerance: none (kernels and plain versions must agree bit for bit).
 """
+
+import hashlib
 
 import numpy as np
 import pytest
 import torch
 
-from stark_tpu.field import FieldElement
-from stark_tpu.models.fibonacci import FibonacciStark as HostFibonacciStark
-from stark_tpu.ops.limbs import pack
-from stark_tpu.params import GENERATOR, P, R_MOD_P
-from stark_tpu.rng import DeterministicRandom
+from stark_tpu_torch.field import FieldElement
+from stark_tpu_torch.ops.limbs import pack
+from stark_tpu_torch.params import GENERATOR, P, R_MOD_P
+from stark_tpu_torch.rng import DeterministicRandom
 
 pytestmark = pytest.mark.gpu
 
@@ -81,14 +85,84 @@ def test_merkle_kernels_match_plain(cuda, w):
     assert torch.equal(cuda_merkle.merkle_level(leaves), dm.level_hash(leaves))
 
 
+@pytest.mark.parametrize("logn", [13, 20])
+def test_fold_kernel_matches_plain(cuda, logn):
+    from stark_tpu_torch.ops import cuda_fold, kernels
+    from stark_tpu_torch.ops.fold import fold_mont
+    from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy
+
+    n = 1 << logn
+    cw = _mont(n, logn + 100, cuda)
+    table = from_numpy(_fold_tables(GENERATOR, FieldElement.primitive_nth_root(n).value, n // 2), cuda)
+    for alpha_value in (0, 1, P - 1, 98765):
+        alpha = from_numpy(pack([alpha_value * R_MOD_P % P]), cuda)
+        before = kernels.LAUNCHES["fri_fold"]
+        got = cuda_fold.fri_fold(cw, alpha, table)
+        assert kernels.LAUNCHES["fri_fold"] == before + 1
+        assert torch.equal(got, fold_mont(cw, alpha, table))
+
+
+def test_fs_round_matches_plain_and_hashlib(cuda):
+    """Bodies of 0-1000 bytes: the hashed message (8 + body + 72 bytes)
+    crosses the 136-byte rate several times."""
+    from stark_tpu_torch.ops import cuda_fs, field_ops, kernels
+    from stark_tpu_torch.ops.device_fs import fs_round_plain
+    from stark_tpu_torch.ops.limbs import from_numpy, to_numpy, unpack
+
+    rng = np.random.default_rng(7)
+    for body_len in [0, 1, 55, 56, 57, 63, 64, 65, 135, 136, 137, 199, 200, 201, 407, 408, 409, 1000]:
+        body = torch.from_numpy(rng.integers(0, 256, body_len + 72, dtype=np.uint8)).to(cuda)
+        body_plain = body.clone()
+        root = from_numpy(rng.integers(0, 1 << 32, 8, dtype=np.uint64).astype(np.uint32), cuda)
+        count = int(rng.integers(0, 1 << 62))
+        before = kernels.LAUNCHES["fs_round"]
+        alpha = cuda_fs.fs_round(body, body_len, count, root)
+        assert kernels.LAUNCHES["fs_round"] == before + 1
+        assert torch.equal(alpha, fs_round_plain(body_plain, body_len, count, root)), body_len
+        assert torch.equal(body, body_plain), body_len
+        msg = count.to_bytes(8, "little") + bytes(body[: body_len + 72].cpu().numpy())
+        want = FieldElement.sample(hashlib.shake_256(msg).digest(32)).value
+        assert unpack(to_numpy(field_ops.from_mont(alpha)))[0] == want, body_len
+
+
+def test_fri_cascade_transcript_on_the_card_equals_host_fri(cuda):
+    from stark_tpu_torch.fri import Fri
+    from stark_tpu_torch.ops import kernels
+    from stark_tpu_torch.ops.device_prover import DeviceProverCore
+    from stark_tpu_torch.poly import Polynomial
+    from stark_tpu_torch.proof_stream import ProofStream
+
+    n = 1 << 14
+    fri = Fri(FieldElement.generator(), FieldElement.primitive_nth_root(n), n, 4, 2)
+    poly = Polynomial([i * 7919 % P for i in range(1, n // 4)])
+    ps_host = ProofStream()
+    idx_host = fri.prove([fe.value for fe in poly.eval_domain(fri.eval_domain())], ps_host)
+
+    core = DeviceProverCore(n, fri.offset.value, cuda)
+    ps_dev = ProofStream()
+    kernels.reset_launch_counts()
+    idx_dev = fri.prove(core.extend_codeword(poly.coeffs), ps_dev)
+    assert fri.last_fused_rounds >= 2
+    assert idx_dev == idx_host
+    assert ps_dev.objects == ps_host.objects
+    assert kernels.LAUNCHES["fs_round"] >= 2 and kernels.LAUNCHES["fri_fold"] >= 2
+
+
 def test_fibonacci_proof_on_the_card_equals_host(cuda):
     from stark_tpu_torch.models.fibonacci import FibonacciStark
-    from stark_tpu_torch.ops import kernels
+    from stark_tpu_torch.ops import device_merkle, kernels
 
     a, b = FieldElement(3), FieldElement(7)
-    _, host_proof = HostFibonacciStark(1000, rng=DeterministicRandom(11)).prove(a, b)
-    kernels.reset_launch_counts()
-    result, proof = FibonacciStark(1000, device=cuda, rng=DeterministicRandom(11)).prove(a, b)
+    _, host_proof = FibonacciStark(1000, device=None, rng=DeterministicRandom(11)).prove(a, b)
+    floor = device_merkle.DEVICE_TREE_MIN
+    device_merkle.DEVICE_TREE_MIN = 2048  # the 8192-point domain then runs 3 fused FRI rounds
+    try:
+        kernels.reset_launch_counts()
+        model = FibonacciStark(1000, device=cuda, rng=DeterministicRandom(11))
+        result, proof = model.prove(a, b)
+    finally:
+        device_merkle.DEVICE_TREE_MIN = floor
     assert proof == host_proof
+    assert model.stark.fri.last_fused_rounds == 3
     assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    assert HostFibonacciStark(1000).verify(a, b, result, proof)
+    assert FibonacciStark(1000, device=None).verify(a, b, result, proof)

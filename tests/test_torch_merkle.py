@@ -30,6 +30,11 @@ from stark_tpu_torch.ops import field_ops as tfo
 from stark_tpu_torch.ops.device_prover import fetch_absorb
 from stark_tpu_torch.ops.limbs import from_numpy, to_numpy
 
+# The suite runs several pytest-xdist workers side by side; more than one
+# torch thread per worker oversubscribes the cores, and the threads'
+# OpenMP spin-waits then slow the plain versions tens of times.
+torch.set_num_threads(1)
+
 N = 2048
 
 

@@ -28,6 +28,11 @@ from stark_tpu_torch.ops import field_ops as tfo
 from stark_tpu_torch.ops.limbs import _bit_reverse_indices, from_numpy, to_numpy
 from stark_tpu_torch.ops.ntt import get_plan
 
+# The suite runs several pytest-xdist workers side by side; more than one
+# torch thread per worker oversubscribes the cores, and the threads'
+# OpenMP spin-waits then slow the plain versions tens of times.
+torch.set_num_threads(1)
+
 N = 1 << 13
 TRANSFORMS = ["forward", "inverse", "coset_forward", "coset_inverse"]
 

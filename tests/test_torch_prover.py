@@ -6,16 +6,21 @@
   floor) proved through the port's device pipeline with its plain kernel
   versions — byte-identical to the ``stark_tpu`` host proof on the same
   seed, accepted by the host verifier, a wrong claim rejected;
-* the port's wiring (``TorchFri``, its own prover core) and its CLI;
-* that no module of the port imports JAX.
+* the port's host prover (no backend) byte-identical to ``stark_tpu``'s;
+* the port's wiring (its own ``Fri``, its own prover core) and its CLI;
+* that the port is self-contained: no module of it, and not
+  ``chip_smoke.py``, imports JAX or the ``stark_tpu`` package, checked by
+  importing every module and by scanning every import statement.
 
 Tolerance: none (proof bytes and limbs are compared exactly).
 """
 
+import ast
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,15 +36,23 @@ from stark_tpu.ops.fold import fold_mont as jax_fold_mont
 from stark_tpu.ops.limbs import pack
 from stark_tpu.params import GENERATOR, P, R_MOD_P
 from stark_tpu.rng import DeterministicRandom
-from stark_tpu_torch.fri import TorchFri
+from stark_tpu_torch.field import FieldElement as PortFieldElement
+from stark_tpu_torch.fri import Fri
 from stark_tpu_torch.models.fibonacci import FibonacciStark
 from stark_tpu_torch.ops import backend as tbackend
 from stark_tpu_torch.ops.device_prover import DeviceProverCore
 from stark_tpu_torch.ops.fold import fold_mont
 from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, to_numpy
+from stark_tpu_torch.rng import DeterministicRandom as PortRandom
+
+# The suite runs several pytest-xdist workers side by side; more than one
+# torch thread per worker oversubscribes the cores, and the threads'
+# OpenMP spin-waits then slow the plain versions tens of times.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-A, B = FieldElement(3), FieldElement(7)
+A, B = FieldElement(3), FieldElement(7)  # the JAX package's elements, for its host prover
+PA, PB = PortFieldElement(3), PortFieldElement(7)  # the port's own, for the port
 
 
 def _values(n: int, seed: int):
@@ -91,15 +104,15 @@ def proofs():
     assert host.stark.fri_domain_length == 8192
     assert not host.stark._use_device_pipeline()
     host_result, host_proof = host.prove(A, B)
-    port = FibonacciStark(1000, device="cpu", rng=DeterministicRandom(seed))
-    result, proof = port.prove(A, B)
+    port = FibonacciStark(1000, device="cpu", rng=PortRandom(seed))
+    result, proof = port.prove(PA, PB)
     return host_result, host_proof, port, result, proof
 
 
 def test_fibonacci_proof_bytes_equal_host(proofs):
     host_result, host_proof, port, result, proof = proofs
     assert port.stark._use_device_pipeline()
-    assert result == host_result
+    assert result.value == host_result.value
     assert proof == host_proof
     prof = port.stark.last_profile
     for stage in ("combination", "fri", "bq_merkle", "openings", "trace_interpolation"):
@@ -109,20 +122,19 @@ def test_fibonacci_proof_bytes_equal_host(proofs):
 def test_fibonacci_proof_verifies_and_wrong_claim_fails(proofs):
     _, _, port, result, proof = proofs
     host_verifier = HostFibonacciStark(1000)
-    assert host_verifier.verify(A, B, result, proof)
-    assert port.verify(A, B, result, proof)
-    assert not port.verify(A, B, result + FieldElement(1), proof)
-    assert not host_verifier.verify(A, B, result + FieldElement(1), proof)
+    assert host_verifier.verify(A, B, FieldElement(result.value), proof)
+    assert port.verify(PA, PB, result, proof)
+    assert not port.verify(PA, PB, result + PortFieldElement(1), proof)
+    assert not host_verifier.verify(A, B, FieldElement(result.value + 1), proof)
 
 
 def test_port_wiring(proofs):
     port = proofs[2]
-    assert isinstance(port.stark.fri, TorchFri)
+    assert type(port.stark.fri) is Fri
     core = port.stark._device_core()
     assert isinstance(core, DeviceProverCore)
     assert core.device == torch.device("cpu") and core.n == 8192
-    assert port.precompile() is None
-    assert port.stark.precompile(port._constraints) is None
+    assert port.stark.fri.last_fused_rounds == 0  # 8192 points: below two device-tree rounds
 
 
 def test_device_air_group_values_match_host(proofs):
@@ -137,17 +149,17 @@ def test_device_air_group_values_match_host(proofs):
 
 
 def test_tampered_trace_trips_the_device_degree_check():
-    port = FibonacciStark(1000, device="cpu", rng=DeterministicRandom(6))
-    trace = port.air.trace(A, B)
-    trace[500][0] = trace[500][0] + FieldElement(1)
-    boundary = port.air.boundary_constraints(A, B, trace[-1][0])
+    port = FibonacciStark(1000, device="cpu", rng=PortRandom(6))
+    trace = port.air.trace(PA, PB)
+    trace[500][0] = trace[500][0] + PortFieldElement(1)
+    boundary = port.air.boundary_constraints(PA, PB, trace[-1][0])
     with pytest.raises(ValueError, match="degree"):
         port.stark.prove(trace, port._constraints, boundary)
 
 
 def test_cli_round_trip_on_cpu(tmp_path, proofs):
     out = tmp_path / "fib.bin"
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")  # one torch thread, as in this process
     run = lambda *args: subprocess.run(  # noqa: E731
         [sys.executable, "-m", "stark_tpu_torch.cli", *args], capture_output=True, text=True, cwd=REPO, env=env,
         timeout=600,
@@ -170,11 +182,47 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import stark_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(stark_tpu_torch.__path__, 'stark_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
-        "assert len(names) >= 14, names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert len(names) >= 30, names\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'stark_tpu') or m.startswith(('jax.', 'stark_tpu.'))]\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
+
+
+def _imported_modules(path: Path):
+    """(line, module) of every import statement in a file, at any depth
+    (lazy imports inside functions included); relative imports are
+    reported as written, with their leading dots."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            yield node.lineno, "." * node.level + (node.module or "")
+
+
+def test_no_import_of_jax_or_the_jax_package_anywhere_in_the_port():
+    files = sorted(Path(REPO, "stark_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    assert len(files) >= 30
+    bad = [
+        f"{path.relative_to(REPO)}:{line}: {module}"
+        for path in files
+        for line, module in _imported_modules(path)
+        if module.split(".")[0] in ("jax", "jaxlib", "stark_tpu")
+    ]
+    assert not bad, bad
+
+
+def test_port_host_prover_equals_the_jax_package_host_prover(proofs):
+    """``Stark`` with no backend is the host prover: fib-1000 proofs are
+    byte-identical to ``stark_tpu``'s, and it verifies the device proof."""
+    host_result, host_proof = proofs[0], proofs[1]
+    port_host = FibonacciStark(1000, device=None, rng=PortRandom(11))
+    assert port_host.stark.backend is None and not port_host.stark._use_device_pipeline()
+    result, proof = port_host.prove(PA, PB)
+    assert result.value == host_result.value
+    assert proof == host_proof
+    assert port_host.verify(PA, PB, result, proofs[4])
