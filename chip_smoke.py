@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
 """Drive the torch prover's main path once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # the whole check, below
+    python3 chip_smoke.py --ntt-times DIR   # only the NTT pass times, of the checkout at DIR
 
 Phases (one line each; any failure raises and the exit code is non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit, the
    build of the port's host C library and of the CUDA kernels (one nvcc
-   per source, all started together);
+   per source, all started together), and the kernels' instructions read
+   from the library's SASS (``ops/sass.py``) for the operation bounds;
 2. each CUDA kernel against its plain PyTorch version on the card,
    bit-exact: the four-step NTT passes (forward, inverse and coset
-   transforms at 2^13 and 2^20 points), the Blake2b-256 leaf and level
-   kernels at 2^20, a 2^13-leaf device tree (root and auth paths) against
-   the host Merkle tree, the FRI fold at 2^13 and 2^20, and the
-   Fiat-Shamir round at transcript bodies of 0 to 1000 bytes (also
-   against hashlib); kernel and plain times by CUDA events;
+   transforms at every size from 2^13 to 2^20 points, each timed, and
+   a line of their launch shape, registers and resident blocks per SM
+   at 2^17 and 2^20), the Blake2b-256 leaf and level kernels at 2^20, a
+   2^13-leaf device tree (root and auth paths) against the host Merkle
+   tree, the FRI fold at 2^13 and 2^20, and the Fiat-Shamir round at
+   transcript bodies of 0 to 1000 bytes (also against hashlib); kernel
+   times by CUDA events around launches queued back to back
+   (``ops/timing.device_ms``), plain times around one call;
 3. FibonacciStark(1000) proved on the card, byte-identical to the port's
    host prover (no backend) on the same seeded randomness;
 4. FibonacciStark(65536) proved on the card over its 2^20-point FRI
-   domain, with every kernel's launch counter > 0 for that prove and at
-   least 2 FRI rounds fused into the device cascade; the proof must
-   verify with the port's host verifier and a wrong claim must fail;
+   domain, with every kernel's launch counter > 0 for that prove, every
+   NTT size it ran among those phase 2 checked (a line gives each size's
+   launches beside its phase-2 times), and at least 2 FRI rounds fused
+   into the device cascade; the proof must verify with the port's host
+   verifier and a wrong claim must fail;
 5. a JSON line of the kernels, then the last line
    {"ok": true, "device": {...}}.
+
+A kernel's bound is the larger of its bytes over the memory rate and its
+warp instructions (counted in the SASS for this run's shapes) over the
+issue and pipe rates of the card's SMs at their top clock.
+
+``--ntt-times DIR`` times the NTT passes of the checkout at DIR (for
+paired runs against another commit unpacked with ``git archive``) on
+this checkout's inputs and timers, one JSON line a size.
 
 The script imports nothing of JAX or of the ``stark_tpu`` package.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -34,30 +49,21 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
-TIMING_REPS = 5
+# every NTT size the fib-2^16 prove may run (2^13 up to its 2^20 FRI
+# domain): each is checked and timed in phase 2, and phase 4 fails if the
+# prove ran a size outside it
+NTT_LOGNS = tuple(range(13, 21))
 
-# Least-time model of the card (NVIDIA H100 SXM, 700 W): HBM3 at 3.35 TB/s
-# (data sheet) and 32-bit integer issue at 132 SMs x 64 INT32 lanes x
-# 1.98 GHz boost (Hopper architecture white paper).
+# HBM3 of the card (NVIDIA H100 SXM, 700 W) at 3.35 TB/s (data sheet)
 MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# 32-bit integer operations per primitive, counted from the kernels' code
-# with the card's fused forms (IADD3 / LOP3 take three inputs, a 32x32->64
-# product counts 2): a Montgomery product is 20 wide products and ~40
-# carry adds; an add or sub with its conditional correction ~10; a
-# Blake2b-256 compression is 12 rounds x 8 G x 22; a Keccak-f[1600]
-# permutation 24 rounds x ~190 (64-bit lanes as 32-bit halves).
-FE_MUL_OPS, FE_ADD_OPS = 80, 10
-BLAKE2B_OPS = 12 * 8 * 22
-KECCAK_OPS = 24 * 190
 LIMB_BYTES = 32  # one field element: 8 int32 limbs
+KECCAK_ROUNDS = 24
 # the transcript body the first fused FRI round of a FibonacciStark prove
 # extends: two boundary-quotient roots and the randomizer root, each a
 # bincode string of 72 bytes
@@ -68,33 +74,62 @@ def say(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(torch, fn) -> float:
-    """Median of TIMING_REPS CUDA-event timings of fn() after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMING_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def max_abs_err(torch, got, want) -> int:
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype mismatch: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def bound(bytes_moved: float, int_ops: float):
-    """(bound_ms, bound_by): the larger of the memory and integer times."""
-    mem_ms = bytes_moved / MEM_BYTES_PER_S * 1e3
-    ops_ms = int_ops / INT32_OPS_PER_S * 1e3
-    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+def ntt_pass_times(torch, cuda_ntt, limbs, generator, dev, device_ms, call_ms) -> dict:
+    """Pass 1 with the coset-forward tables (prologue and W) and pass 2
+    with the inverse tables (epilogue), the prover's extension and
+    restriction, on the (8, n) Montgomery limbs ``limbs``: checked bit for
+    bit against their plain versions, then their kernel (device), call
+    and plain ms."""
+    plan = cuda_ntt.get_cuda_plan(limbs.shape[1], dev)
+    x = limbs.reshape(8, plan.R, plan.C)
+    w, tw_r, _, row, col = plan.op_tables(False, generator)
+    _, _, tw_c, irow, icol = plan.op_tables(True, generator)
+    y = cuda_ntt.ntt_pass1(x, tw_r, w, row, col)
+    calls = {"ntt_pass1": (lambda: cuda_ntt.ntt_pass1(x, tw_r, w, row, col),
+                           lambda: cuda_ntt.ntt_pass1_plain(x, tw_r, w, row, col)),
+             "ntt_pass2": (lambda: cuda_ntt.ntt_pass2(y, tw_c, irow, icol),
+                           lambda: cuda_ntt.ntt_pass2_plain(y, tw_c, irow, icol))}
+    for name, (kernel, plain) in calls.items():
+        if not torch.equal(kernel(), plain()):
+            raise AssertionError(f"{name} disagrees with its plain version at n = {limbs.shape[1]}")
+    return {name: {"kernel": device_ms(kernel), "call": call_ms(kernel), "plain": call_ms(plain)}
+            for name, (kernel, plain) in calls.items()}
+
+
+def ntt_times_of(tree: str) -> int:
+    """``--ntt-times DIR``: :func:`ntt_pass_times` of the checkout at
+    ``tree`` at every size, with this checkout's inputs and timers."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch finds no CUDA device: this check needs one card")
+    sys.path.insert(0, REPO)
+    from stark_tpu_torch.ops.limbs import seeded_mont
+    from stark_tpu_torch.ops.timing import call_ms, device_ms
+
+    for name in [m for m in sys.modules if m.split(".")[0] == "stark_tpu_torch"]:
+        del sys.modules[name]  # the helpers above keep what they hold; the passes come from `tree`
+    sys.path[0] = os.path.abspath(tree)
+    from stark_tpu_torch.ops import cuda_ntt
+    from stark_tpu_torch.params import GENERATOR
+
+    if not os.path.abspath(cuda_ntt.__file__).startswith(os.path.abspath(tree) + os.sep):
+        raise RuntimeError(f"imported {cuda_ntt.__file__}, not the checkout at {tree}")
+    dev = torch.device("cuda")
+    for logn in NTT_LOGNS:
+        limbs = torch.from_numpy(seeded_mont(1 << logn, logn).view(np.int32)).to(dev)
+        say("ntt_times", tree=tree, n=1 << logn,
+            **ntt_pass_times(torch, cuda_ntt, limbs, GENERATOR, dev, device_ms, call_ms))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -115,7 +150,9 @@ def main() -> int:
     from stark_tpu_torch.ops import field_ops as fo
     from stark_tpu_torch.ops.device_fs import fs_round_plain
     from stark_tpu_torch.ops.fold import fold_mont
-    from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, pack, to_numpy, unpack
+    from stark_tpu_torch.ops import sass
+    from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, pack, seeded_mont, to_numpy, unpack
+    from stark_tpu_torch.ops.timing import call_ms, device_ms
     from stark_tpu_torch.params import GENERATOR, P, R_MOD_P
     from stark_tpu_torch.rng import DeterministicRandom
 
@@ -144,6 +181,45 @@ def main() -> int:
     say("build", seconds=round(build_s, 3), nvcc_seconds=kernels.build_info.get("seconds"),
         library=os.path.relpath(str(kernels.build_info["path"]), REPO), ptxas=ptxas)
 
+    # the operation side of each kernel's bound: its warp instructions in
+    # the library's SASS, over the card's SMs at their top clock
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    funcs = sass.functions(sass.disassemble(str(kernels.build_info["path"]), kernels._nvcc()))
+
+    def bound(bytes_moved: float, counts):
+        """(bound_ms, bound_by): the larger of the memory and instruction times."""
+        mem_ms = bytes_moved / MEM_BYTES_PER_S * 1e3
+        ops_ms = counts.seconds(sms, clock_hz) * 1e3
+        return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+    def ntt_counts(pass1: bool, log_l: int, log_b: int):
+        """Warp instructions of one pass (the kernel with row/col
+        multipliers): each loop's body times the iterations of its
+        2^log_b blocks, 32 threads a warp; the code around the loops is
+        not counted."""
+        L = 1 << log_l
+        tw_shared = cuda_ntt.launch_shape(log_l, log_b)[1] == 2 * 16 * L
+        body = sass.loops(sass.find(funcs, f"ntt_pass_kernelILb{int(pass1)}ELb{int(tw_shared)}ELb1E"))
+        # [twiddle load], load, radix-4 step, radix-2 stage, store
+        if (len(body) != 4 + tw_shared or not all(b.branch_free for b in body)
+                or (body[-3].opcodes["STS"], body[-2].opcodes["STS"], body[-1].opcodes["STG"]) != (4, 2, 8)):
+            raise AssertionError(f"unexpected loops in the NTT pass kernel's SASS: {[dict(b.opcodes) for b in body]}")
+        iterations = [L] * tw_shared + [L, log_l // 2 * L // 4, log_l % 2 * L // 2, L]
+        return sum((b.counts * (i * (1 << log_b) / 32) for b, i in zip(body, iterations)), sass.Counts())
+
+    per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernel")),
+                "merkle_level": sass.straight_line(sass.find(funcs, "level_kernel")),
+                "fri_fold": sass.straight_line(sass.find(funcs, "fold_kernel")),
+                "keccak_round": max((b for b in sass.loops(sass.find(funcs, "fs_round_kernel")) if b.branch_free),
+                                    key=lambda b: b.opcodes["LOP3"]).counts}
+    say("sass", sms=sms, clock_mhz=clock_hz / 1e6,
+        warp_instructions_per_thread={k: v._asdict() for k, v in per_unit.items()},
+        warp_instructions_2e20={"ntt_pass1": ntt_counts(True, 10, 10)._asdict(),
+                                "ntt_pass2": ntt_counts(False, 10, 10)._asdict()})
+
     # -- 2. kernels against their plain versions on the card ------------------
     rng = np.random.default_rng(SEED)
 
@@ -155,10 +231,11 @@ def main() -> int:
 
     report = {}  # kernel -> (kernel ms, plain ms, bound ms, bound by) at the main path's shape
     errs = {}
-    for logn in (13, 20):
+    ntt_sizes = {}  # n -> pass -> blocks, kernel/call/plain/bound ms at that size
+    for logn in NTT_LOGNS:
         n = 1 << logn
-        vals = seeded_values(n)
-        a = from_numpy(pack([v * R_MOD_P % P for v in vals]), dev)
+        vals = seeded_values(n) if logn == 13 else None
+        a = from_numpy(pack([v * R_MOD_P % P for v in vals]) if vals else seeded_mont(n, logn), dev)
         plan = cuda_ntt.get_cuda_plan(n, dev)
         ntt_errs = {}
         for name, inverse, offset in (("forward", False, 1), ("inverse", True, 1),
@@ -180,28 +257,21 @@ def main() -> int:
                         "coset_inverse": lambda: host.coset_interpolate(vals, GENERATOR)}[name]()
                 if unpack(to_numpy(fo.from_mont(z.reshape(8, n)))) != want:
                     raise AssertionError(f"2^13 {name} transform disagrees with the host NTT")
-        # time the coset-forward tables (pass 1 with prologue) and the
-        # inverse tables (pass 2 with epilogue): the extend and restrict shapes
-        w, tw_r, _, row, col = plan.op_tables(False, GENERATOR)
-        x = a.reshape(8, plan.R, plan.C)
-        _, _, tw_c, irow, icol = plan.op_tables(True, GENERATOR)
-        y = cuda_ntt.ntt_pass1(x, tw_r, w, row, col)
+        # time the extend and restrict shapes; one block a transform
         R, C = plan.R, plan.C
-        times = {
-            "ntt_pass1": (cuda_ms(torch, lambda: cuda_ntt.ntt_pass1(x, tw_r, w, row, col)),
-                          cuda_ms(torch, lambda: cuda_ntt.ntt_pass1_plain(x, tw_r, w, row, col)),
-                          *bound(LIMB_BYTES * (3 * n + 2 * R + C),
-                                 3 * n * FE_MUL_OPS + n // 2 * (R.bit_length() - 1) * (FE_MUL_OPS + 2 * FE_ADD_OPS))),
-            "ntt_pass2": (cuda_ms(torch, lambda: cuda_ntt.ntt_pass2(y, tw_c, irow, icol)),
-                          cuda_ms(torch, lambda: cuda_ntt.ntt_pass2_plain(y, tw_c, irow, icol)),
-                          *bound(LIMB_BYTES * (2 * n + 2 * C + R),
-                                 2 * n * FE_MUL_OPS + n // 2 * (C.bit_length() - 1) * (FE_MUL_OPS + 2 * FE_ADD_OPS))),
-        }
+        log_r, log_c = R.bit_length() - 1, C.bit_length() - 1
+        ntt_sizes[n] = ntt_pass_times(torch, cuda_ntt, a, GENERATOR, dev, device_ms, call_ms)
+        for name, blocks, bytes_moved, counts in (
+                ("ntt_pass1", C, LIMB_BYTES * (3 * n + 2 * R + C), ntt_counts(True, log_r, log_c)),
+                ("ntt_pass2", R, LIMB_BYTES * (2 * n + 2 * C + R), ntt_counts(False, log_c, log_r))):
+            ntt_sizes[n][name].update(zip(("blocks", "bound", "bound_by"), (blocks, *bound(bytes_moved, counts))))
         if logn == 20:
-            report.update(times)
+            report.update({k: (v["kernel"], v["plain"], v["bound"], v["bound_by"]) for k, v in ntt_sizes[n].items()})
             errs.update(ntt_pass1=0, ntt_pass2=0)
-        say("ntt_kernels", n=n, R=R, C=C, max_abs_err=ntt_errs,
-            ms={k: {"kernel": v[0], "plain": v[1], "bound": v[2], "bound_by": v[3]} for k, v in times.items()})
+        say("ntt_kernels", n=n, R=R, C=C, max_abs_err=ntt_errs, ms=ntt_sizes[n])
+    say("ntt_occupancy", **{f"2^{logn}": {
+        "ntt_pass1": cuda_ntt.occupancy(logn // 2, logn - logn // 2, True, device=dev),
+        "ntt_pass2": cuda_ntt.occupancy(logn - logn // 2, logn // 2, False, device=dev)} for logn in (17, 20)})
 
     n = 1 << 20
     vals = seeded_values(n)
@@ -214,12 +284,12 @@ def main() -> int:
     errs["merkle_level"] = max_abs_err(torch, parents, dm.level_hash(leaves))
     if errs["merkle_leaves"] or errs["merkle_level"]:
         raise AssertionError(f"Merkle kernels disagree with their plain versions: {errs}")
-    report["merkle_leaves"] = (cuda_ms(torch, lambda: cuda_merkle.merkle_leaves(d)),
-                               cuda_ms(torch, lambda: dm.leaf_digests_from_digits(d)),
-                               *bound(16 * n + 32 * n, n * BLAKE2B_OPS))
-    report["merkle_level"] = (cuda_ms(torch, lambda: cuda_merkle.merkle_level(leaves)),
-                              cuda_ms(torch, lambda: dm.level_hash(leaves)),
-                              *bound(32 * n + 32 * (n // 2), n // 2 * BLAKE2B_OPS))
+    report["merkle_leaves"] = (device_ms(lambda: cuda_merkle.merkle_leaves(d)),
+                               call_ms(lambda: dm.leaf_digests_from_digits(d)),
+                               *bound(16 * n + 32 * n, per_unit["merkle_leaves"] * (n / 32)))
+    report["merkle_level"] = (device_ms(lambda: cuda_merkle.merkle_level(leaves)),
+                              call_ms(lambda: dm.level_hash(leaves)),
+                              *bound(32 * n + 32 * (n // 2), per_unit["merkle_level"] * (n // 2 / 32)))
 
     n_tree = 1 << 13
     tree_vals = seeded_values(n_tree)
@@ -249,10 +319,9 @@ def main() -> int:
         fold_errs[n] = worst
         if worst:
             raise AssertionError(f"fold kernel disagrees with its plain version at 2^{logn}: {worst}")
-    report["fri_fold"] = (cuda_ms(torch, lambda: cuda_fold.fri_fold(cw, alpha, table)),
-                          cuda_ms(torch, lambda: fold_mont(cw, alpha, table)),
-                          *bound(LIMB_BYTES * (n + n // 2 + 1 + n // 2),
-                                 n // 2 * (4 * FE_MUL_OPS + 3 * FE_ADD_OPS)))
+    report["fri_fold"] = (device_ms(lambda: cuda_fold.fri_fold(cw, alpha, table)),
+                          call_ms(lambda: fold_mont(cw, alpha, table)),
+                          *bound(LIMB_BYTES * (n + n // 2 + 1 + n // 2), per_unit["fri_fold"] * (n // 2 / 32)))
     errs["fri_fold"] = 0
     say("fold_kernel", n=n, max_abs_err=fold_errs,
         ms={"kernel": report["fri_fold"][0], "plain": report["fri_fold"][1], "bound": report["fri_fold"][2],
@@ -275,9 +344,10 @@ def main() -> int:
     errs["fs_round"] = 0
     body = torch.zeros(FS_BODY_BYTES + 72, dtype=torch.uint8, device=dev)
     fs_blocks = (8 + FS_BODY_BYTES + 72) // 136 + 1
-    report["fs_round"] = (cuda_ms(torch, lambda: cuda_fs.fs_round(body, FS_BODY_BYTES, 4, root)),
-                          cuda_ms(torch, lambda: fs_round_plain(body, FS_BODY_BYTES, 4, root)),
-                          *bound(FS_BODY_BYTES + 32 + 72 + 32, fs_blocks * KECCAK_OPS + 3 * FE_MUL_OPS))
+    report["fs_round"] = (device_ms(lambda: cuda_fs.fs_round(body, FS_BODY_BYTES, 4, root)),
+                          call_ms(lambda: fs_round_plain(body, FS_BODY_BYTES, 4, root)),
+                          *bound(FS_BODY_BYTES + 32 + 72 + 32,  # one thread: a warp instruction each
+                                 per_unit["keccak_round"] * (fs_blocks * KECCAK_ROUNDS)))
     say("fs_kernel", body_lengths_checked=fs_lengths, against=["plain", "hashlib"], timed_body_bytes=FS_BODY_BYTES,
         ms={"kernel": report["fs_round"][0], "plain": report["fs_round"][1], "bound": report["fs_round"][2],
             "bound_by": report["fs_round"][3]})
@@ -305,6 +375,7 @@ def main() -> int:
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    ntt_launches = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
     fused = model.stark.fri.last_fused_rounds
     stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
     missing = [k for k, v in launches.items() if v <= 0]
@@ -312,6 +383,9 @@ def main() -> int:
         raise AssertionError(f"the 2^16-step prove never launched {missing}: {launches}")
     if fused < 2:
         raise AssertionError(f"the 2^16-step prove fused {fused} FRI rounds, expected >= 2")
+    unchecked = sorted(set(ntt_launches) - set(ntt_sizes))
+    if unchecked:
+        raise AssertionError(f"the 2^16-step prove ran NTT passes at sizes phase 2 did not check: {unchecked}")
     verifier = FibonacciStark(steps, device=None)  # the port's host verifier
     t0 = time.perf_counter()
     ok = verifier.verify(a, b, result, proof)
@@ -327,9 +401,10 @@ def main() -> int:
     warm_stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
     say("prove", steps=steps, fri_domain=model.stark.fri_domain_length, prove_seconds=prove_s,
         warm_prove_seconds=warm_prove_s, verify_seconds=verify_s, proof_bytes=len(proof), fused_fri_rounds=fused,
-        launches=launches, stages_seconds=stages, warm_stages_seconds=warm_stages,
+        launches=launches, ntt_launches_by_size=ntt_launches, stages_seconds=stages, warm_stages_seconds=warm_stages,
         peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
     print(f"fused FRI rounds: {fused}", flush=True)
+    say("ntt_sizes", rows=[{"n": n, "launches": ntt_launches.get(n, {}), **ntt_sizes[n]} for n in sorted(ntt_sizes)])
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "stark_tpu") or m.startswith(("jax.", "stark_tpu.")))
     if leaked:
@@ -357,4 +432,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ntt-times":
+        sys.exit(ntt_times_of(sys.argv[2]))
+    if len(sys.argv) != 1:
+        sys.exit(f"usage: {sys.argv[0]} [--ntt-times DIR]")
     sys.exit(main())

@@ -18,7 +18,7 @@
 
 namespace stark {
 
-struct Fe {
+struct alignas(16) Fe {  // 16-byte aligned: one vector load or store in shared memory
     uint32_t w[4];
 };
 

@@ -23,6 +23,7 @@ not ported.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -39,6 +40,39 @@ from .limbs import _bit_reverse_indices, _mont_pack, _power_table, from_numpy
 CUDA_NTT_MIN_SIZE = 1 << 13
 #: longest size-L pass the kernels hold in shared memory
 MAX_PASS_LEN = 1 << 12
+
+#: bytes of one field element in the kernels' shared memory
+_FE_BYTES = 16
+#: shared memory of one H100 SM, and what the card reserves for each block
+_SM_SHARED_BYTES = 228 * 1024
+_BLOCK_RESERVED_BYTES = 1024
+#: the kernel's block bound (``__launch_bounds__`` in csrc/ntt.cu)
+_MAX_THREADS = 256
+#: blocks of a cluster (``__cluster_dims__`` in csrc/ntt.cu): 8 one-column
+#: blocks load and store 32-byte runs, the card's memory sector
+CLUSTER_BLOCKS = 8
+
+
+def launch_shape(log_l: int, log_b: int):
+    """(threads, smem_bytes) of one pass of ``2^log_b`` transforms of
+    length ``L = 2^log_l``: a block's threads and dynamic shared memory.
+
+    A block takes one transform (one batch column, fixed in the kernel):
+    a pass launches ``2^log_b`` blocks, at least 256 from 2^17 up, in
+    clusters of :data:`CLUSTER_BLOCKS`.  A block has one thread per
+    radix-2 butterfly of a stage (L / 2) up to the kernel's bound of 256,
+    in whole warps.  The stage twiddles sit in shared memory beside the
+    data where two blocks still fit on an SM (L <= 2048); otherwise the
+    kernel reads them through the read-only cache and smem_bytes holds
+    the data alone.  A sweep of tiles of 1-16 columns, clusters of 1-8
+    blocks, 64-256 threads and both twiddle placements chose this shape
+    at 2^17-2^20 on the card (PERF.md)."""
+    L = 1 << log_l
+    threads = min(_MAX_THREADS, max(32, L // 2))
+    smem = L * _FE_BYTES
+    if 2 * (2 * smem + _BLOCK_RESERVED_BYTES) <= _SM_SHARED_BYTES:
+        smem *= 2
+    return threads, smem
 
 
 def _pack_stage_twiddles(n_t: int, inverse: bool) -> np.ndarray:
@@ -139,21 +173,23 @@ def ntt_pass1(x, tw, w, row=None, col=None) -> torch.Tensor:
     prologue ``x[j1, j2] *= row[bitrev(j1)] * col[j2]`` when ``row``/``col``
     are given and the epilogue ``*= W``.  Returns A*W as (8, R, C).
 
-    Replaces ``PallasNTT._pass1`` (stark_tpu/ops/pallas_ntt.py).  The
-    design keeps each tile's transforms in shared memory so a pass touches
-    device memory once; on the card it is held back by latency with one
-    block per SM, not by bandwidth or integer issue (see csrc/ntt.cu)."""
+    Replaces ``PallasNTT._pass1`` (stark_tpu/ops/pallas_ntt.py).  One
+    block per transform holds it in shared memory, so a pass touches
+    device memory once; clusters of 8 blocks share the loads and stores
+    along the column axis (see csrc/ntt.cu)."""
     _, R, C = x.shape
     _check("x", x, (NUM_LIMBS, R, C), x.device)
     _check_pass(x, R, C, [("tw", tw, (NUM_LIMBS, R)), ("w", w, (NUM_LIMBS, R, C))], R, C, row, col)
     if x.device.type == "cpu":
         return ntt_pass1_plain(x, tw, w, row, col)
     out = torch.empty_like(x)
+    log_r, log_c = R.bit_length() - 1, C.bit_length() - 1
     kernels.launch(
         "ntt_pass1", "stark_ntt_pass1",
-        kernels.ptr(x), kernels.ptr(out), R.bit_length() - 1, C.bit_length() - 1,
+        kernels.ptr(x), kernels.ptr(out), log_r, log_c,
         kernels.ptr(tw), kernels.ptr(w), kernels.ptr(row), kernels.ptr(col),
-        device=x.device,
+        *launch_shape(log_r, log_c),
+        device=x.device, size=R * C,
     )
     return out
 
@@ -171,13 +207,32 @@ def ntt_pass2(y, tw, row=None, col=None) -> torch.Tensor:
     if y.device.type == "cpu":
         return ntt_pass2_plain(y, tw, row, col)
     out = torch.empty((NUM_LIMBS, C, R), dtype=torch.int32, device=y.device)
+    log_r, log_c = R.bit_length() - 1, C.bit_length() - 1
     kernels.launch(
         "ntt_pass2", "stark_ntt_pass2",
-        kernels.ptr(y), kernels.ptr(out), R.bit_length() - 1, C.bit_length() - 1,
-        kernels.ptr(tw), kernels.ptr(row), kernels.ptr(col),
-        device=y.device,
+        kernels.ptr(y), kernels.ptr(out), log_r, log_c,
+        kernels.ptr(tw), kernels.ptr(row), kernels.ptr(col), *launch_shape(log_c, log_r),
+        device=y.device, size=R * C,
     )
     return out
+
+
+def occupancy(log_l: int, log_b: int, pass1: bool, device="cuda") -> dict:
+    """One pass's launch as the card sees it, for the kernel with row/col
+    multipliers (the prover's coset extension in pass 1, its inverse in
+    pass 2): :func:`launch_shape`, the blocks of the grid, the kernel's
+    registers a thread and spilled bytes, the blocks an SM holds at once
+    and the clusters the card holds at once."""
+    threads, smem = launch_shape(log_l, log_b)
+    regs, local, resident, clusters = (ctypes.c_int() for _ in range(4))
+    with torch.cuda.device(torch.device(device)):
+        err = kernels.library().stark_ntt_occupancy(int(pass1), log_l, threads, smem, *(ctypes.byref(v) for v in (
+            regs, local, resident, clusters)))
+    if err != 0:
+        raise RuntimeError(f"stark_ntt_occupancy failed with CUDA error {err}")
+    return {"threads": threads, "smem_bytes": smem, "cluster": CLUSTER_BLOCKS, "blocks": 1 << log_b,
+            "registers": regs.value, "local_bytes": local.value, "blocks_per_sm": resident.value,
+            "resident_clusters": clusters.value}
 
 
 # -- the plan -----------------------------------------------------------------

@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -41,9 +41,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
+_PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "stark_ntt_pass1": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "stark_ntt_pass2": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "stark_ntt_pass1": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    "stark_ntt_pass2": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "stark_ntt_occupancy": [_I, _I, _I, _I, _PI, _PI, _PI, _PI],
     "stark_merkle_leaves": [_P, _P, _I64, _P],
     "stark_merkle_level": [_P, _P, _I64, _P],
     "stark_fri_fold": [_P, _P, _P, _P, _I64, _P],
@@ -54,6 +56,9 @@ _SIGNATURES = {
 LAUNCHES: Dict[str, int] = {
     "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "fri_fold": 0, "fs_round": 0,
 }
+#: transform size n -> kernel name -> launches since the last reset, for
+#: the kernels whose wrappers pass ``size`` (the NTT passes)
+LAUNCHES_BY_SIZE: Dict[int, Dict[str, int]] = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -64,6 +69,7 @@ build_info: Dict[str, object] = {}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_SIZE.clear()
 
 
 def _nvcc() -> str:
@@ -135,15 +141,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, entry: str, *args, device: torch.device) -> None:
+def launch(kernel: str, entry: str, *args, device: torch.device, size: Optional[int] = None) -> None:
     """Call one C entry point on ``device``'s current stream, raise if it
-    reports a CUDA error, and count the launch."""
+    reports a CUDA error, and count the launch (also under ``size`` in
+    :data:`LAUNCHES_BY_SIZE` when given)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1
+    if size is not None:
+        by_kernel = LAUNCHES_BY_SIZE.setdefault(size, {})
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
 
 
 def ptr(t) -> int:

@@ -100,6 +100,18 @@ def from_numpy(arr: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(a.view(np.int32), device=device)  # a copy: never aliases the caller's array
 
 
+def seeded_mont(n: int, seed: int) -> np.ndarray:
+    """(8, n) uint32 limbs of n seeded canonical Montgomery values, the
+    forms of 0, 1 and p - 1 first: a top limb below p's keeps each value
+    below p.  Made in bulk with numpy, so large inputs cost no Python ints."""
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << LIMB_BITS, (NUM_LIMBS, n), dtype=np.uint32)
+    limbs[NUM_LIMBS - 1] = rng.integers(0, P >> (LIMB_BITS * (NUM_LIMBS - 1)), n, dtype=np.uint32)
+    for i, v in enumerate((0, R_MOD_P, P - R_MOD_P)):
+        limbs[:, i] = limbs_of(v)
+    return limbs
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """``int32`` tensor -> ``uint32`` numpy array with the same bits."""
     if t.dtype != torch.int32:

@@ -35,15 +35,14 @@ def cuda():
 
 
 def _mont(n: int, seed: int, device):
-    from stark_tpu_torch.ops.limbs import from_numpy
+    """n seeded canonical Montgomery values as (8, n) limbs, the forms of
+    0, 1 and p - 1 first."""
+    from stark_tpu_torch.ops.limbs import from_numpy, seeded_mont
 
-    rng = np.random.default_rng(seed)
-    vals = [(int(v) << 64 | int(w)) % P for v, w in zip(rng.integers(0, 1 << 63, n), rng.integers(0, 1 << 63, n))]
-    vals[:3] = [0, 1, P - 1]
-    return from_numpy(pack([v * R_MOD_P % P for v in vals]), device)
+    return from_numpy(seeded_mont(n, seed), device)
 
 
-@pytest.mark.parametrize("logn", [13, 14, 17])
+@pytest.mark.parametrize("logn", [13, 14, 16, 17, 18, 19, 20, 23])
 @pytest.mark.parametrize("inverse, offset", [(False, 1), (True, 1), (False, GENERATOR), (True, GENERATOR)])
 def test_ntt_passes_match_plain(cuda, logn, inverse, offset):
     from stark_tpu_torch.ops import cuda_ntt, kernels
@@ -53,12 +52,15 @@ def test_ntt_passes_match_plain(cuda, logn, inverse, offset):
     pro = not inverse and row is not None
     x = _mont(1 << logn, logn, cuda).reshape(8, plan.R, plan.C)
     before = dict(kernels.LAUNCHES)
+    before_n = dict(kernels.LAUNCHES_BY_SIZE.get(1 << logn, {}))
     y = cuda_ntt.ntt_pass1(x, tw_r, w, row if pro else None, col if pro else None)
     assert torch.equal(y, cuda_ntt.ntt_pass1_plain(x, tw_r, w, row if pro else None, col if pro else None))
     z = cuda_ntt.ntt_pass2(y, tw_c, row if inverse else None, col if inverse else None)
     assert torch.equal(z, cuda_ntt.ntt_pass2_plain(y, tw_c, row if inverse else None, col if inverse else None))
     assert kernels.LAUNCHES["ntt_pass1"] == before["ntt_pass1"] + 1
     assert kernels.LAUNCHES["ntt_pass2"] == before["ntt_pass2"] + 1
+    for name in ("ntt_pass1", "ntt_pass2"):
+        assert kernels.LAUNCHES_BY_SIZE[1 << logn][name] == before_n.get(name, 0) + 1
 
 
 def test_ntt_kernels_refuse_small_transforms(cuda):

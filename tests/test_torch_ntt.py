@@ -25,7 +25,7 @@ from stark_tpu.ops.ntt import get_plan as jax_get_plan
 from stark_tpu.params import GENERATOR, P, R_MOD_P
 from stark_tpu_torch.ops import cuda_ntt
 from stark_tpu_torch.ops import field_ops as tfo
-from stark_tpu_torch.ops.limbs import _bit_reverse_indices, from_numpy, to_numpy
+from stark_tpu_torch.ops.limbs import _bit_reverse_indices, from_numpy, seeded_mont, to_numpy
 from stark_tpu_torch.ops.ntt import get_plan
 
 # The suite runs several pytest-xdist workers side by side; more than one
@@ -163,6 +163,34 @@ def test_pass_wrappers_validate_inputs():
         cuda_ntt.ntt_pass2(x.transpose(1, 2), tw_c)  # not contiguous
     with pytest.raises(ValueError):
         cuda_ntt.CudaNTT(1 << 12, "cpu")  # below the kernels' minimum
+
+
+@pytest.mark.parametrize("logn", range(13, 24))
+@pytest.mark.parametrize("which", ["pass1", "pass2"])
+def test_launch_shape_fills_the_card(logn, which):
+    """Every pass of every size from 2^13 to 2^23 (R = 2^floor(logn / 2),
+    as in ``CudaNTT``): one block per transform, in whole warps within the
+    kernel's bound and the card's 232,448 bytes of shared memory a block,
+    at least 256 blocks from 2^17 up, never fewer than the first design's
+    rule (tile = min(32, 8192 / L, batch)), and whole clusters of 8 blocks
+    that each hold a share of the rows."""
+    log_r = logn // 2
+    log_l, log_b = (log_r, logn - log_r) if which == "pass1" else (logn - log_r, log_r)
+    L, batch = 1 << log_l, 1 << log_b
+    threads, smem = cuda_ntt.launch_shape(log_l, log_b)
+    blocks = batch
+    assert threads % 32 == 0 and 32 <= threads <= min(1024, cuda_ntt._MAX_THREADS)
+    assert smem in (L * 16, 2 * L * 16) and smem <= 232_448
+    if logn >= 17:
+        assert blocks >= 256
+    assert blocks >= batch // min(32, 8192 // L, batch)
+    assert blocks % cuda_ntt.CLUSTER_BLOCKS == 0 and L % cuda_ntt.CLUSTER_BLOCKS == 0
+
+
+def test_seeded_mont_is_canonical_montgomery():
+    vals = unpack(seeded_mont(4096, 7))
+    assert vals[:3] == [0, R_MOD_P, P - R_MOD_P]
+    assert all(0 <= v < P for v in vals) and len(set(vals)) == 4096
 
 
 def test_bit_reverse_indices_copy_matches_jax_package():
