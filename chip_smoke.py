@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
 """Drive the torch prover's main path once on one CUDA card.
 
-    python3 chip_smoke.py                   # the whole check, below
-    python3 chip_smoke.py --ntt-times DIR   # only the NTT pass times, of the checkout at DIR
+    python3 chip_smoke.py               # the whole check, below
+    python3 chip_smoke.py --times DIR   # NTT, Fiat-Shamir and top Merkle times of the checkout at DIR
 
 Phases (one line each; any failure raises and the exit code is non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit, the
    build of the port's host C library and of the CUDA kernels (one nvcc
    per source, all started together), and the kernels' instructions read
-   from the library's SASS (``ops/sass.py``) for the operation bounds;
+   from the library's SASS (``ops/sass.py``) for the operation bounds,
+   with each kernel's local-memory loads and stores;
 2. each CUDA kernel against its plain PyTorch version on the card,
    bit-exact: the four-step NTT passes (forward, inverse and coset
    transforms at every size from 2^13 to 2^20 points, each timed, and
    a line of their launch shape, registers and resident blocks per SM
-   at 2^17 and 2^20), the Blake2b-256 leaf and level kernels at 2^20, a
-   2^13-leaf device tree (root and auth paths) against the host Merkle
-   tree, the FRI fold at 2^13 and 2^20, and the Fiat-Shamir round at
-   transcript bodies of 0 to 1000 bytes (also against hashlib); kernel
-   times by CUDA events around launches queued back to back
+   at 2^17 and 2^20), the Blake2b-256 leaf and level kernels at 2^20
+   (the level kernel timed at every width of a 2^20 tree), the top
+   kernel at every width from 2 to 2^13 (timed from 2^9 to 2^13 against
+   the chain of level launches it replaces, the split at ``TOP_WIDTH``
+   among them), a 2^13-leaf device tree (root and auth paths) against
+   the host Merkle tree, the FRI fold at 2^13 and 2^20, and the
+   Fiat-Shamir round at transcript bodies of 0 to 1000 bytes and at the 8
+   bodies the fib-2^16 cascade extends (also against hashlib, those 8
+   timed);
+   kernel times by CUDA events around launches queued back to back
    (``ops/timing.device_ms``), plain times around one call;
 3. FibonacciStark(1000) proved on the card, byte-identical to the port's
    host prover (no backend) on the same seeded randomness;
@@ -27,7 +33,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    NTT size it ran among those phase 2 checked (a line gives each size's
    launches beside its phase-2 times), and at least 2 FRI rounds fused
    into the device cascade; the proof must verify with the port's host
-   verifier and a wrong claim must fail;
+   verifier and a wrong claim must fail; then each kernel's device time
+   in that prove: its launches at each size times its time at that size
+   (timed in phase 2, or now for sizes phase 2 did not time);
 5. a JSON line of the kernels, then the last line
    {"ok": true, "device": {...}}.
 
@@ -35,9 +43,12 @@ A kernel's bound is the larger of its bytes over the memory rate and its
 warp instructions (counted in the SASS for this run's shapes) over the
 issue and pipe rates of the card's SMs at their top clock.
 
-``--ntt-times DIR`` times the NTT passes of the checkout at DIR (for
-paired runs against another commit unpacked with ``git archive``) on
-this checkout's inputs and timers, one JSON line a size.
+``--times DIR`` times the NTT passes at every size, the Fiat-Shamir round
+at the cascade's 8 bodies and, where it has one, the top Merkle kernel at
+2^9 to 2^13 of the checkout at DIR (for paired runs against another
+commit unpacked with ``git archive``) on this checkout's inputs and
+timers, one JSON line each, after a line of the local-memory
+instructions and the Keccak round loop in DIR's library.
 
 The script imports nothing of JAX or of the ``stark_tpu`` package.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -66,8 +77,11 @@ LIMB_BYTES = 32  # one field element: 8 int32 limbs
 KECCAK_ROUNDS = 24
 # the transcript body the first fused FRI round of a FibonacciStark prove
 # extends: two boundary-quotient roots and the randomizer root, each a
-# bincode string of 72 bytes
+# bincode string of 72 bytes; each later round appends its own root
 FS_BODY_BYTES = 3 * 72
+FS_CASCADE_BODIES = tuple(FS_BODY_BYTES + 72 * r for r in range(8))
+# level widths the top kernel is timed at against the level launches it replaces
+TOP_SWEEP = tuple(1 << k for k in range(9, 14))
 
 
 def say(phase: str, **fields) -> None:
@@ -102,31 +116,64 @@ def ntt_pass_times(torch, cuda_ntt, limbs, generator, dev, device_ms, call_ms) -
             for name, (kernel, plain) in calls.items()}
 
 
-def ntt_times_of(tree: str) -> int:
-    """``--ntt-times DIR``: :func:`ntt_pass_times` of the checkout at
-    ``tree`` at every size, with this checkout's inputs and timers."""
+def keccak_round(sass, funcs):
+    """The Fiat-Shamir kernel's Keccak round: its innermost loop with the
+    most shuffles (the one-warp kernel), then the most logic instructions
+    (the one-thread kernel of older trees, read by ``--times``)."""
+    return max(sass.loops(sass.find(funcs, "fs_round_kernel")),
+               key=lambda b: (b.opcodes["SHFL"], b.opcodes["LOP3"]))
+
+
+def local_memory(sass, funcs) -> dict:
+    """Kernel name -> its local-memory loads and stores, where it has any."""
+    counts = {name: sass.local_accesses(ins) for name, ins in funcs.items()}
+    return {name: c for name, c in counts.items() if sum(c.values())}
+
+
+def times_of(tree: str) -> int:
+    """``--times DIR``: :func:`ntt_pass_times` of the checkout at ``tree``
+    at every size, its Fiat-Shamir round at the cascade's bodies and its
+    top Merkle kernel, with this checkout's inputs, timers and plain
+    versions."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch finds no CUDA device: this check needs one card")
     sys.path.insert(0, REPO)
+    from stark_tpu_torch.ops import sass
+    from stark_tpu_torch.ops.device_fs import fs_round_plain
     from stark_tpu_torch.ops.limbs import seeded_mont
     from stark_tpu_torch.ops.timing import call_ms, device_ms
 
     for name in [m for m in sys.modules if m.split(".")[0] == "stark_tpu_torch"]:
-        del sys.modules[name]  # the helpers above keep what they hold; the passes come from `tree`
+        del sys.modules[name]  # the helpers above keep what they hold; the kernels come from `tree`
     sys.path[0] = os.path.abspath(tree)
-    from stark_tpu_torch.ops import cuda_ntt
+    from stark_tpu_torch.ops import cuda_fs, cuda_merkle, cuda_ntt, kernels
     from stark_tpu_torch.params import GENERATOR
 
     if not os.path.abspath(cuda_ntt.__file__).startswith(os.path.abspath(tree) + os.sep):
         raise RuntimeError(f"imported {cuda_ntt.__file__}, not the checkout at {tree}")
     dev = torch.device("cuda")
+    kernels.library()
+    funcs = sass.functions(sass.disassemble(str(kernels.build_info["path"]), kernels._nvcc()))
+    say("sass_of", tree=tree, local_memory=local_memory(sass, funcs),
+        keccak_round=dict(keccak_round(sass, funcs).opcodes))
     for logn in NTT_LOGNS:
         limbs = torch.from_numpy(seeded_mont(1 << logn, logn).view(np.int32)).to(dev)
         say("ntt_times", tree=tree, n=1 << logn,
             **ntt_pass_times(torch, cuda_ntt, limbs, GENERATOR, dev, device_ms, call_ms))
+    root = torch.arange(8, dtype=torch.int32, device=dev) * 0x1234567
+    for body_len in FS_CASCADE_BODIES:
+        body = torch.zeros(body_len + 72, dtype=torch.uint8, device=dev)
+        if not torch.equal(cuda_fs.fs_round(body, body_len, 4, root), fs_round_plain(body.clone(), body_len, 4, root)):
+            raise AssertionError(f"fs_round of {tree} disagrees with the plain version at a {body_len}-byte body")
+        say("fs_times", tree=tree, body_bytes=body_len,
+            kernel=device_ms(lambda: cuda_fs.fs_round(body, body_len, 4, root)))
+    if hasattr(cuda_merkle, "merkle_top"):  # the trees since the top kernel
+        for w in TOP_SWEEP:
+            level = torch.from_numpy(seeded_mont(w, w).view(np.int32)).to(dev)
+            say("top_times", tree=tree, width=w, kernel=device_ms(lambda: cuda_merkle.merkle_top(level)))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0
@@ -210,12 +257,35 @@ def main() -> int:
         iterations = [L] * tw_shared + [L, log_l // 2 * L // 4, log_l % 2 * L // 2, L]
         return sum((b.counts * (i * (1 << log_b) / 32) for b, i in zip(body, iterations)), sass.Counts())
 
+    top_parent = max(sass.loops(sass.find(funcs, "top_kernel")), key=lambda b: b.counts.issue)
+    round_loop = keccak_round(sass, funcs)
     per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernel")),
                 "merkle_level": sass.straight_line(sass.find(funcs, "level_kernel")),
+                "merkle_top": top_parent.counts,  # one parent
                 "fri_fold": sass.straight_line(sass.find(funcs, "fold_kernel")),
-                "keccak_round": max((b for b in sass.loops(sass.find(funcs, "fs_round_kernel")) if b.branch_free),
-                                    key=lambda b: b.opcodes["LOP3"]).counts}
-    say("sass", sms=sms, clock_mhz=clock_hz / 1e6,
+                "keccak_round": round_loop.counts}
+
+    def bound_at(name: str, size: int):
+        """(bound_ms, bound_by) of one launch of a Merkle, fold or
+        Fiat-Shamir kernel at its launch size (leaves, level width,
+        codeword length, body bytes); the NTT passes' are computed in
+        phase 2."""
+        if name == "merkle_leaves":  # 4 digit words in, 8 digest words out a leaf
+            return bound(48 * size, per_unit[name] * (size / 32))
+        if name == "merkle_level":  # two children in, one parent out
+            return bound(48 * size, per_unit[name] * (size / 2 / 32))
+        if name == "merkle_top":  # the level in, every parent out, once each
+            return bound(32 * size + 32 * (size - 1), per_unit[name] * ((size - 1) / 32))
+        if name == "fri_fold":  # codeword, table, alpha in; half the codeword out
+            return bound(LIMB_BYTES * (size + size // 2 + 1 + size // 2), per_unit[name] * (size / 2 / 32))
+        if name == "fs_round":  # body, root, 72 appended bytes, alpha; one warp runs the round loop
+            blocks = (8 + size + 72) // 136 + 1
+            return bound(size + 32 + 72 + 32, per_unit["keccak_round"] * (blocks * KECCAK_ROUNDS))
+        raise AssertionError(f"no bound for {name}")
+
+    say("sass", sms=sms, clock_mhz=clock_hz / 1e6, local_memory=local_memory(sass, funcs),
+        keccak_round_opcodes=dict(round_loop.opcodes), branch_free={"keccak_round": round_loop.branch_free,
+                                                                    "merkle_top": top_parent.branch_free},
         warp_instructions_per_thread={k: v._asdict() for k, v in per_unit.items()},
         warp_instructions_2e20={"ntt_pass1": ntt_counts(True, 10, 10)._asdict(),
                                 "ntt_pass2": ntt_counts(False, 10, 10)._asdict()})
@@ -286,10 +356,45 @@ def main() -> int:
         raise AssertionError(f"Merkle kernels disagree with their plain versions: {errs}")
     report["merkle_leaves"] = (device_ms(lambda: cuda_merkle.merkle_leaves(d)),
                                call_ms(lambda: dm.leaf_digests_from_digits(d)),
-                               *bound(16 * n + 32 * n, per_unit["merkle_leaves"] * (n / 32)))
+                               *bound_at("merkle_leaves", n))
     report["merkle_level"] = (device_ms(lambda: cuda_merkle.merkle_level(leaves)),
                               call_ms(lambda: dm.level_hash(leaves)),
-                              *bound(32 * n + 32 * (n // 2), per_unit["merkle_level"] * (n // 2 / 32)))
+                              *bound_at("merkle_level", n))
+
+    # the level kernel at every width of a 2^20 tree; the top kernel against
+    # its plain version at every width to 2^13, and timed from 2^9 to 2^13
+    # against the chain of level launches it replaces
+    def level_chain(level):
+        while level.shape[1] > 1:
+            level = cuda_merkle.merkle_level(level)
+        return level
+
+    level_in = {1 << k: leaves[:, : 1 << k].contiguous() for k in range(1, 21)}
+    timed = {}  # (kernel, launch size) -> device ms, for the prove's per-kernel sums (phase 4)
+    for w, level in level_in.items():
+        timed["merkle_level", w] = device_ms(lambda: cuda_merkle.merkle_level(level))
+    top_errs = {w: max_abs_err(torch, cuda_merkle.merkle_top(level_in[w]), dm.merkle_top_plain(level_in[w]))
+                for w in (1 << k for k in range(1, 14))}
+    if any(top_errs.values()):
+        raise AssertionError(f"the top kernel disagrees with its plain version: {top_errs}")
+    if cuda_merkle.TOP_WIDTH not in TOP_SWEEP:
+        raise AssertionError(f"TOP_WIDTH {cuda_merkle.TOP_WIDTH} is outside the timed widths {TOP_SWEEP}")
+    top_sweep = {}
+    for w in TOP_SWEEP:
+        level = level_in[w]
+        timed["merkle_top", w] = device_ms(lambda: cuda_merkle.merkle_top(level))
+        top_sweep[w] = {"top": timed["merkle_top", w], "level_chain": device_ms(lambda: level_chain(level), 4)}
+    # a tree split at w: the top kernel from w, a level launch at each wider width to 2^13
+    split_ms = {w: timed["merkle_top", w] + sum(timed["merkle_level", v] for v in TOP_SWEEP if v > w)
+                for w in TOP_SWEEP}
+    top = cuda_merkle.TOP_WIDTH
+    report["merkle_top"] = (timed["merkle_top", top], call_ms(lambda: dm.merkle_top_plain(level_in[top])),
+                            *bound_at("merkle_top", top))
+    errs["merkle_top"] = 0
+    say("merkle_top", max_abs_err=top_errs, top_width=top, sweep=top_sweep, split_ms=split_ms,
+        cheapest_split=min(split_ms, key=split_ms.get), level_ms={w: timed["merkle_level", w] for w in level_in},
+        ms={"kernel": report["merkle_top"][0], "plain": report["merkle_top"][1], "bound": report["merkle_top"][2],
+            "bound_by": report["merkle_top"][3]})
 
     n_tree = 1 << 13
     tree_vals = seeded_values(n_tree)
@@ -321,14 +426,14 @@ def main() -> int:
             raise AssertionError(f"fold kernel disagrees with its plain version at 2^{logn}: {worst}")
     report["fri_fold"] = (device_ms(lambda: cuda_fold.fri_fold(cw, alpha, table)),
                           call_ms(lambda: fold_mont(cw, alpha, table)),
-                          *bound(LIMB_BYTES * (n + n // 2 + 1 + n // 2), per_unit["fri_fold"] * (n // 2 / 32)))
+                          *bound_at("fri_fold", n))
     errs["fri_fold"] = 0
     say("fold_kernel", n=n, max_abs_err=fold_errs,
         ms={"kernel": report["fri_fold"][0], "plain": report["fri_fold"][1], "bound": report["fri_fold"][2],
             "bound_by": report["fri_fold"][3]})
 
     fs_lengths = [0, 1, 55, 56, 57, 63, 64, 65, 127, 128, 135, 136, 137, FS_BODY_BYTES, 271, 272, 273, 500, 1000]
-    for body_len in fs_lengths:
+    for body_len in fs_lengths + list(FS_CASCADE_BODIES):
         body = torch.from_numpy(rng.integers(0, 256, body_len + 72, dtype=np.uint8)).to(dev)
         body_plain = body.clone()
         root = from_numpy(rng.integers(0, 1 << 32, 8, dtype=np.uint64).astype(np.uint32), dev)
@@ -342,13 +447,15 @@ def main() -> int:
         if unpack(to_numpy(fo.from_mont(got)))[0] != sampled:
             raise AssertionError(f"fs_round's alpha differs from hashlib's Shake256 at a {body_len}-byte body")
     errs["fs_round"] = 0
+    for body_len in FS_CASCADE_BODIES:
+        body = torch.zeros(body_len + 72, dtype=torch.uint8, device=dev)
+        timed["fs_round", body_len] = device_ms(lambda: cuda_fs.fs_round(body, body_len, 4, root))
     body = torch.zeros(FS_BODY_BYTES + 72, dtype=torch.uint8, device=dev)
-    fs_blocks = (8 + FS_BODY_BYTES + 72) // 136 + 1
-    report["fs_round"] = (device_ms(lambda: cuda_fs.fs_round(body, FS_BODY_BYTES, 4, root)),
+    report["fs_round"] = (timed["fs_round", FS_BODY_BYTES],
                           call_ms(lambda: fs_round_plain(body, FS_BODY_BYTES, 4, root)),
-                          *bound(FS_BODY_BYTES + 32 + 72 + 32,  # one thread: a warp instruction each
-                                 per_unit["keccak_round"] * (fs_blocks * KECCAK_ROUNDS)))
-    say("fs_kernel", body_lengths_checked=fs_lengths, against=["plain", "hashlib"], timed_body_bytes=FS_BODY_BYTES,
+                          *bound_at("fs_round", FS_BODY_BYTES))
+    say("fs_kernel", body_lengths_checked=fs_lengths + list(FS_CASCADE_BODIES), against=["plain", "hashlib"],
+        timed_body_bytes=FS_BODY_BYTES, cascade_ms={n: timed["fs_round", n] for n in FS_CASCADE_BODIES},
         ms={"kernel": report["fs_round"][0], "plain": report["fs_round"][1], "bound": report["fs_round"][2],
             "bound_by": report["fs_round"][3]})
 
@@ -375,7 +482,9 @@ def main() -> int:
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    ntt_launches = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
+    by_size = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
+    ntt_launches = {n: {k: c for k, c in v.items() if k.startswith("ntt_")} for n, v in by_size.items()}
+    ntt_launches = {n: v for n, v in ntt_launches.items() if v}
     fused = model.stark.fri.last_fused_rounds
     stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
     missing = [k for k, v in launches.items() if v <= 0]
@@ -406,6 +515,46 @@ def main() -> int:
     print(f"fused FRI rounds: {fused}", flush=True)
     say("ntt_sizes", rows=[{"n": n, "launches": ntt_launches.get(n, {}), **ntt_sizes[n]} for n in sorted(ntt_sizes)])
 
+    # each kernel's device time in that prove: its launches at each size
+    # times its time at that size, timed in phase 2 or here on seeded inputs
+    for n, passes in ntt_sizes.items():
+        for name in ("ntt_pass1", "ntt_pass2"):
+            timed[name, n] = passes[name]["kernel"]
+
+    def launch_at(name: str, size: int):
+        if name == "merkle_leaves":
+            x = d[:, :size].contiguous()
+            return lambda: cuda_merkle.merkle_leaves(x)
+        if name in ("merkle_level", "merkle_top"):
+            x = leaves[:, :size].contiguous()
+            return lambda: getattr(cuda_merkle, name)(x)
+        if name == "fri_fold":
+            x, t = cw[:, :size].contiguous(), table[:, : size // 2].contiguous()
+            return lambda: cuda_fold.fri_fold(x, alpha, t)
+        if name == "fs_round":
+            x = torch.zeros(size + 72, dtype=torch.uint8, device=dev)
+            return lambda: cuda_fs.fs_round(x, size, 4, root)
+        raise AssertionError(f"no timer for {name} at launch size {size}")
+
+    prove_ms = dict.fromkeys(launches, 0.0)
+    prove_bound_ms = dict.fromkeys(launches, 0.0)
+    for size, counts in by_size.items():
+        for name, count in counts.items():
+            if (name, size) not in timed:
+                timed[name, size] = device_ms(launch_at(name, size))
+            prove_ms[name] += count * timed[name, size]
+            prove_bound_ms[name] += count * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
+                                             else bound_at(name, size)[0])
+    if any(sum(v.get(name, 0) for v in by_size.values()) != launches[name] for name in launches):
+        raise AssertionError(f"launches by size do not add up to the launch counts: {by_size} vs {launches}")
+    # the levels the top kernel hashes, as the chain of level launches it replaces
+    small_levels_before = sum(v["merkle_top"] * top_sweep[size]["level_chain"]
+                              for size, v in by_size.items() if "merkle_top" in v)
+    say("prove_kernels", prove_ms=prove_ms, prove_bound_ms=prove_bound_ms,
+        small_levels_ms={"level_launches": small_levels_before, "merkle_top": prove_ms["merkle_top"]},
+        by_size=[{"size": size, **{k: {"launches": c, "ms": timed[k, size]} for k, c in v.items()}}
+                 for size, v in by_size.items()])
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "stark_tpu") or m.startswith(("jax.", "stark_tpu.")))
     if leaked:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {leaked[:5]}")
@@ -416,13 +565,15 @@ def main() -> int:
         "ntt_pass2": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:311"),
         "merkle_leaves": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:156"),
         "merkle_level": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:185"),
+        "merkle_top": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:215"),
         "fri_fold": ("stark_tpu_torch/csrc/fold.cu", "stark_tpu/ops/pallas_fold.py:145"),
         "fs_round": ("stark_tpu_torch/csrc/fs.cu", "stark_tpu/ops/device_keccak.py:132"),
     }
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "max_abs_err": errs[name], "ms": report[name][0], "plain_ms": report[name][1],
-         "bound_ms": report[name][2], "bound_by": report[name][3], "library_ms": None}
+         "bound_ms": report[name][2], "bound_by": report[name][3], "library_ms": None, "prove_ms": prove_ms[name],
+         "prove_bound_ms": prove_bound_ms[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": rows}), flush=True)
@@ -432,8 +583,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--ntt-times":
-        sys.exit(ntt_times_of(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--times":
+        sys.exit(times_of(sys.argv[2]))
     if len(sys.argv) != 1:
-        sys.exit(f"usage: {sys.argv[0]} [--ntt-times DIR]")
+        sys.exit(f"usage: {sys.argv[0]} [--times DIR]")
     sys.exit(main())

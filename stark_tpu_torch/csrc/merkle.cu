@@ -10,8 +10,16 @@
 // stay in registers, and the SIGMA schedule is unrolled at compile time (the
 // ROUND macro below), so message "gathers" are register renames.  A
 // single-block compress is ~1.1k 64-bit integer ops against 32 to 64
-// bytes of loads and 32 bytes of stores, so the kernels are bound by
+// bytes of loads and 32 bytes of stores, so the wide levels are bound by
 // integer throughput, not by memory.
+//
+// The narrow levels at the top of a tree are not: a level of a few hundred
+// parents or fewer fills a fraction of one SM, and its time is a launch gap,
+// a global round trip and one compress's latency.  So the top kernel (the
+// narrow levels of the JAX package's tree_levels, which hashes them outside
+// its Pallas kernel) hashes every level of a narrow subtree down to the
+// root in one launch: one block, each level built from the previous one in
+// shared memory, a barrier between levels.
 //
 // Layouts are the JAX package's: digits (4, n) and digest words (8, w),
 // u32 bits held in int32 tensors.  The level kernel reads its children
@@ -25,6 +33,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTopThreads = 1024;
+// widest level the top kernel takes: its two shared buffers (w/2 and w/4
+// digests of 32 bytes) then fill 192 KB of the SM's 227 KB
+constexpr int64_t kTopMaxWidth = 8192;
+
+constexpr size_t top_smem_bytes(int64_t w) { return static_cast<size_t>(24 * w); }
 
 constexpr uint64_t kIV0 = 0x6A09E667F3BCC908ull, kIV1 = 0xBB67AE8584CAA73Bull;
 constexpr uint64_t kIV2 = 0x3C6EF372FE94F82Bull, kIV3 = 0xA54FF53A5F1D36F1ull;
@@ -119,6 +133,49 @@ __global__ void level_kernel(const uint32_t* __restrict__ in, uint32_t* __restri
     store_digest(out, half, i, h);
 }
 
+// Parent i of the planar (8, w) level src (global or shared memory):
+// Blake2b-256(child 2i || child 2i + 1), each row's two words in one load.
+__device__ __forceinline__ void hash_parent(const uint32_t* src, int64_t w, int64_t i, uint64_t (&h)[4]) {
+    uint64_t m[16] = {};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const uint2 lo = reinterpret_cast<const uint2*>(src + (2 * j) * w)[i];  // words 2i, 2i + 1 of row 2j
+        const uint2 hi = reinterpret_cast<const uint2*>(src + (2 * j + 1) * w)[i];
+        m[j] = lo.x | (static_cast<uint64_t>(hi.x) << 32);
+        m[4 + j] = lo.y | (static_cast<uint64_t>(hi.y) << 32);
+    }
+    blake2b256_block(m, 64, h);
+}
+
+// Every level of the (8, w) subtree in one block, w a power of two: level
+// k (w / 2^k parents) is written to out as a contiguous (8, w / 2^k) slab
+// after the slabs of the levels below it, and to one of two shared
+// buffers, from which the next level reads it after a barrier.  A thread
+// hashes parents t, t + blockDim.x, ...
+__global__ void __launch_bounds__(kTopThreads) top_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                                                          int64_t w) {
+    extern __shared__ uint2 top_shared[];  // uint2: the 8-byte alignment of the paired loads
+    uint32_t* const even = reinterpret_cast<uint32_t*>(top_shared);  // levels 1, 3, 5, ...: (8, w/2) at most
+    uint32_t* const odd = even + 8 * (w / 2);                         // levels 2, 4, ...: (8, w/4) at most
+    const uint32_t* src = in;
+    uint32_t* dst = even;
+#pragma unroll 1
+    for (int64_t width = w; width > 1; width /= 2) {
+        const int64_t half = width / 2;
+#pragma unroll 1
+        for (int64_t i = threadIdx.x; i < half; i += blockDim.x) {
+            uint64_t h[4];
+            hash_parent(src, width, i, h);
+            store_digest(dst, half, i, h);
+            store_digest(out, half, i, h);
+        }
+        __syncthreads();
+        out += 8 * half;
+        src = dst;
+        dst = dst == even ? odd : even;
+    }
+}
+
 }  // namespace
 
 // digits: (4, n); out: (8, n).
@@ -135,6 +192,19 @@ extern "C" int stark_merkle_level(const int32_t* level, int32_t* out, int64_t w,
     if (w < 2 || w % 2) return cudaErrorInvalidValue;
     const unsigned blocks = static_cast<unsigned>((w / 2 + kThreads - 1) / kThreads);
     level_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const uint32_t*>(level), reinterpret_cast<uint32_t*>(out), w);
+    return cudaGetLastError();
+}
+
+// level: (8, w) with w a power of two, 2 <= w <= 8192; out: 8 * (w - 1)
+// words, the (8, w / 2^k) slabs of levels k = 1 .. log2 w, the root last.
+extern "C" int stark_merkle_top(const int32_t* level, int32_t* out, int64_t w, void* stream) {
+    if (w < 2 || w > kTopMaxWidth || (w & (w - 1))) return cudaErrorInvalidValue;
+    static const cudaError_t opt_in = cudaFuncSetAttribute(top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                           static_cast<int>(top_smem_bytes(kTopMaxWidth)));
+    if (opt_in != cudaSuccess) return opt_in;
+    const int threads = static_cast<int>(w / 2 < 32 ? 32 : w / 2 > kTopThreads ? kTopThreads : w / 2);
+    top_kernel<<<1, threads, top_smem_bytes(w), static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const uint32_t*>(level), reinterpret_cast<uint32_t*>(out), w);
     return cudaGetLastError();
 }

@@ -48,5 +48,5 @@ def fri_fold(codeword: torch.Tensor, alpha: torch.Tensor, inv_table: torch.Tenso
         raise ValueError(f"fri_fold: unsupported device {codeword.device}")
     out = torch.empty((8, n // 2), dtype=torch.int32, device=codeword.device)
     kernels.launch("fri_fold", "stark_fri_fold", kernels.ptr(codeword), kernels.ptr(inv_table),
-                   kernels.ptr(alpha), kernels.ptr(out), n // 2, device=codeword.device)
+                   kernels.ptr(alpha), kernels.ptr(out), n // 2, device=codeword.device, size=n)
     return out

@@ -42,5 +42,5 @@ def fs_round(body: torch.Tensor, body_len: int, count: int, root: torch.Tensor) 
         raise ValueError(f"fs_round: unsupported device {body.device}")
     alpha = torch.empty((8, 1), dtype=torch.int32, device=body.device)
     kernels.launch("fs_round", "stark_fs_round", kernels.ptr(body), body_len, count, kernels.ptr(root),
-                   kernels.ptr(alpha), device=body.device)
+                   kernels.ptr(alpha), device=body.device, size=body_len)
     return alpha

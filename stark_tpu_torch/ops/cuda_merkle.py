@@ -1,16 +1,21 @@
-"""Blake2b-256 Merkle tree through the hand-written CUDA kernels (K4, K5).
+"""Blake2b-256 Merkle tree through the hand-written CUDA kernels (K4, K5
+and the top kernel).
 
 Counterpart of :mod:`stark_tpu.ops.pallas_merkle`
 (``leaf_digests_pallas``, ``level_hash_pallas``, ``tree_levels``).
-:func:`merkle_leaves` and :func:`merkle_level` wrap the two kernels of
-``csrc/merkle.cu``; their plain PyTorch versions are
-:func:`stark_tpu_torch.ops.device_merkle.leaf_digests_from_digits` and
-:func:`stark_tpu_torch.ops.device_merkle.level_hash`, and run only for
-tensors on the CPU.  For a CUDA tensor a wrapper launches its kernel or
+:func:`merkle_leaves`, :func:`merkle_level` and :func:`merkle_top` wrap the
+three kernels of ``csrc/merkle.cu``; their plain PyTorch versions are
+:func:`stark_tpu_torch.ops.device_merkle.leaf_digests_from_digits`,
+:func:`stark_tpu_torch.ops.device_merkle.level_hash` and
+:func:`stark_tpu_torch.ops.device_merkle.merkle_top_plain`, and run only
+for tensors on the CPU.  For a CUDA tensor a wrapper launches its kernel or
 raises.
 
-On the card every level down to the root goes through the level kernel:
-the 256-wide minimum of the TPU version was a tiling rule of that chip.
+A tree runs the level kernel, one launch a level, while its level is wider
+than :data:`TOP_WIDTH`, then the top kernel once for every level down to
+the root.  The JAX package splits the same way: its Pallas level kernel
+stops at 256-wide parents (``pallas_merkle.MIN_KERNEL_WIDTH``) and the
+narrower levels run as one XLA function.
 """
 
 from __future__ import annotations
@@ -18,7 +23,13 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .device_merkle import leaf_digests_from_digits, level_hash
+from .device_merkle import leaf_digests_from_digits, level_hash, merkle_top_plain, top_slabs
+
+#: widest level that :func:`tree_levels` hands to the top kernel: one
+#: block hashing the levels above it beats a launch a level
+TOP_WIDTH = 512
+# widest level the top kernel takes (its shared memory; csrc/merkle.cu kTopMaxWidth)
+_TOP_MAX_WIDTH = 8192
 
 
 def _check(name: str, t: torch.Tensor, rows: int) -> None:
@@ -48,7 +59,7 @@ def merkle_leaves(digits: torch.Tensor) -> torch.Tensor:
         return leaf_digests_from_digits(digits)
     out = torch.empty((8, n), dtype=torch.int32, device=digits.device)
     kernels.launch("merkle_leaves", "stark_merkle_leaves", kernels.ptr(digits), kernels.ptr(out), n,
-                   device=digits.device)
+                   device=digits.device, size=n)
     return out
 
 
@@ -67,18 +78,44 @@ def merkle_level(level: torch.Tensor) -> torch.Tensor:
         return level_hash(level)
     out = torch.empty((8, w // 2), dtype=torch.int32, device=level.device)
     kernels.launch("merkle_level", "stark_merkle_level", kernels.ptr(level), kernels.ptr(out), w,
-                   device=level.device)
+                   device=level.device, size=w)
+    return out
+
+
+def merkle_top(level: torch.Tensor) -> torch.Tensor:
+    """(8, w) level, w a power of two, 2 <= w <= 8192 -> every level above
+    it down to the root, as one flat int32 buffer of 8 * (w - 1) words
+    (:func:`~stark_tpu_torch.ops.device_merkle.top_slabs` cuts it into
+    the (8, w / 2^k) levels, the root last).
+
+    Replaces the narrow levels of the JAX package's ``tree_levels``
+    (stark_tpu/ops/pallas_merkle.py), which it hashes outside its Pallas
+    kernel.  One block: each level from the previous one in shared memory,
+    a barrier between levels, so a tree's top costs one launch instead of
+    one a level; bound by the latency of its chain of compressions."""
+    _check("level", level, 8)
+    w = int(level.shape[1])
+    if not 2 <= w <= _TOP_MAX_WIDTH or w & (w - 1):
+        raise ValueError(f"top level width must be a power of two in [2, {_TOP_MAX_WIDTH}], got {w}")
+    if level.device.type == "cpu":
+        return merkle_top_plain(level)
+    out = torch.empty(8 * (w - 1), dtype=torch.int32, device=level.device)
+    kernels.launch("merkle_top", "stark_merkle_top", kernels.ptr(level), kernels.ptr(out), w,
+                   device=level.device, size=w)
     return out
 
 
 def tree_levels(digits: torch.Tensor, tail_width: int):
     """All levels from the (4, n) digits, n a power of two: the (8, w)
     levels for w = n .. tail_width (kept on the device for openings) and
-    the (8,) root words."""
+    the (8,) root words.  The levels above TOP_WIDTH come from the level
+    kernel, the rest from one launch of the top kernel."""
     cur = merkle_leaves(digits.contiguous())
     levels = [cur]
-    while cur.shape[1] > 1:
+    while cur.shape[1] > TOP_WIDTH:
         cur = merkle_level(cur)
         levels.append(cur)
+    if cur.shape[1] > 1:
+        levels += top_slabs(merkle_top(cur), int(cur.shape[1]))
     kept = tuple(lv for lv in levels if lv.shape[1] >= tail_width)
     return kept, levels[-1][:, 0]

@@ -135,6 +135,29 @@ def level_hash(level: torch.Tensor) -> torch.Tensor:
     return blake2b256_single_block(m + [0] * 8, 64)
 
 
+def merkle_top_plain(level: torch.Tensor) -> torch.Tensor:
+    """Every level above an (8, w) level, w a power of two >= 2, down to the
+    root, as one flat int32 buffer of 8 * (w - 1) words: level k is the
+    contiguous (8, w / 2^k) slab after those of the levels below it, the
+    root last (see :func:`top_slabs`)."""
+    slabs = []
+    while level.shape[1] > 1:
+        level = level_hash(level)
+        slabs.append(level.reshape(-1))
+    return torch.cat(slabs)
+
+
+def top_slabs(flat: torch.Tensor, w: int) -> List[torch.Tensor]:
+    """The (8, w / 2^k) views, k = 1 .. log2 w, of a flat buffer laid out
+    as :func:`merkle_top_plain`'s."""
+    views, off = [], 0
+    while w > 1:
+        w //= 2
+        views.append(flat[off : off + 8 * w].view(8, w))
+        off += 8 * w
+    return views
+
+
 def plain_digits(mont: torch.Tensor) -> torch.Tensor:
     """(8, n) Montgomery limbs -> (4, n) ``int32`` plain base-2^32 digits."""
     plain = fo.from_mont(mont).to(torch.int64)

@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -48,16 +48,19 @@ _SIGNATURES = {
     "stark_ntt_occupancy": [_I, _I, _I, _I, _PI, _PI, _PI, _PI],
     "stark_merkle_leaves": [_P, _P, _I64, _P],
     "stark_merkle_level": [_P, _P, _I64, _P],
+    "stark_merkle_top": [_P, _P, _I64, _P],
     "stark_fri_fold": [_P, _P, _P, _P, _I64, _P],
     "stark_fs_round": [_P, _I64, _U64, _P, _P, _P],
 }
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
-    "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "fri_fold": 0, "fs_round": 0,
+    "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_top": 0, "fri_fold": 0,
+    "fs_round": 0,
 }
-#: transform size n -> kernel name -> launches since the last reset, for
-#: the kernels whose wrappers pass ``size`` (the NTT passes)
+#: size of the launch -> kernel name -> launches since the last reset: the
+#: transform's points (NTT passes), the leaves or the level's width (Merkle
+#: kernels), the codeword's length (fold) or the body's bytes (fs_round)
 LAUNCHES_BY_SIZE: Dict[int, Dict[str, int]] = {}
 
 _lock = threading.Lock()
@@ -141,19 +144,18 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, entry: str, *args, device: torch.device, size: Optional[int] = None) -> None:
+def launch(kernel: str, entry: str, *args, device: torch.device, size: int) -> None:
     """Call one C entry point on ``device``'s current stream, raise if it
     reports a CUDA error, and count the launch (also under ``size`` in
-    :data:`LAUNCHES_BY_SIZE` when given)."""
+    :data:`LAUNCHES_BY_SIZE`)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1
-    if size is not None:
-        by_kernel = LAUNCHES_BY_SIZE.setdefault(size, {})
-        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    by_kernel = LAUNCHES_BY_SIZE.setdefault(size, {})
+    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
 
 
 def ptr(t) -> int:

@@ -6,7 +6,8 @@ kernel of the built library; :func:`functions` splits that listing by
 kernel, :func:`straight_line` counts a kernel that runs its whole body
 once per thread, and :func:`loops` counts the bodies of the innermost
 loops of the others, so the caller can multiply each body by the
-iterations its inputs need.
+iterations its inputs need.  :func:`local_accesses` counts a kernel's
+loads and stores of local memory (spilled or run-time indexed arrays).
 
 Counts are in warp instructions, split by the pipe that executes them on
 sm_90 (Hopper): every instruction is issued, one a clock by each of an
@@ -106,6 +107,12 @@ def count(instructions) -> Counts:
     """Counts of the instructions a warp runs once each."""
     ops = [opcode(i) for _, i in instructions if opcode(i) != "NOP"]
     return Counts(len(ops), sum(o in ALU_OPS for o in ops), sum(o in FMA_OPS for o in ops))
+
+
+def local_accesses(instructions) -> Dict[str, int]:
+    """Local-memory loads (``LDL``) and stores (``STL``) of a kernel."""
+    ops = Counter(opcode(i) for _, i in instructions)
+    return {"LDL": ops["LDL"], "STL": ops["STL"]}
 
 
 def _target(instruction: str):

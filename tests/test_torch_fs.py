@@ -1,6 +1,8 @@
 """The port's fused FRI commit cascade against the JAX package, on the CPU.
 
-* the plain Shake256 against hashlib and the JAX ``device_keccak``;
+* the plain Shake256 against hashlib and the JAX ``device_keccak``, and
+  against hashlib at the 8 message lengths a fib-2^16 prove's cascade
+  hashes;
 * ``hex_words`` and ``alpha_mont_from_fs`` against the JAX ``device_fs``;
 * the plain fold against the Pallas fold kernel (interpret mode) and the
   JAX XLA fold;
@@ -63,6 +65,15 @@ def test_shake256_matches_hashlib_and_jax(n):
     got = to_numpy(shake256_words(torch.from_numpy(msg)))
     assert got.astype("<u4").tobytes() == hashlib.shake_256(msg.tobytes()).digest(32)
     assert np.array_equal(got, np.asarray(jax.device_get(jax_shake256_words(jnp.asarray(msg)))))
+
+
+@pytest.mark.parametrize("r", range(8))
+def test_shake256_matches_hashlib_at_the_cascade_lengths(r):
+    """Round r of the fib-2^16 cascade hashes le64(count) || a 216 + 72r
+    byte body || the 72 appended bytes: 3 to 6 permutations."""
+    msg = _msg(8 + 216 + 72 * (r + 1), 100 + r)
+    got = to_numpy(shake256_words(torch.from_numpy(msg)))
+    assert got.astype("<u4").tobytes() == hashlib.shake_256(msg.tobytes()).digest(32)
 
 
 def test_hex_words_and_alpha_match_jax():

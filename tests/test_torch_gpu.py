@@ -87,6 +87,20 @@ def test_merkle_kernels_match_plain(cuda, w):
     assert torch.equal(cuda_merkle.merkle_level(leaves), dm.level_hash(leaves))
 
 
+@pytest.mark.parametrize("log_w", range(1, 14))
+def test_merkle_top_matches_plain(cuda, log_w):
+    from stark_tpu_torch.ops import cuda_merkle, kernels
+    from stark_tpu_torch.ops import device_merkle as dm
+
+    w = 1 << log_w
+    level = torch.tensor(np.random.default_rng(w).integers(0, 1 << 32, (8, w), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32), device=cuda)
+    before = kernels.LAUNCHES["merkle_top"]
+    got = cuda_merkle.merkle_top(level)
+    assert kernels.LAUNCHES["merkle_top"] == before + 1
+    assert torch.equal(got, dm.merkle_top_plain(level))
+
+
 @pytest.mark.parametrize("logn", [13, 20])
 def test_fold_kernel_matches_plain(cuda, logn):
     from stark_tpu_torch.ops import cuda_fold, kernels
@@ -106,13 +120,15 @@ def test_fold_kernel_matches_plain(cuda, logn):
 
 def test_fs_round_matches_plain_and_hashlib(cuda):
     """Bodies of 0-1000 bytes: the hashed message (8 + body + 72 bytes)
-    crosses the 136-byte rate several times."""
+    crosses the 136-byte rate several times; and the 8 bodies of a
+    fib-2^16 prove's cascade."""
     from stark_tpu_torch.ops import cuda_fs, field_ops, kernels
     from stark_tpu_torch.ops.device_fs import fs_round_plain
     from stark_tpu_torch.ops.limbs import from_numpy, to_numpy, unpack
 
     rng = np.random.default_rng(7)
-    for body_len in [0, 1, 55, 56, 57, 63, 64, 65, 135, 136, 137, 199, 200, 201, 407, 408, 409, 1000]:
+    cascade = [216 + 72 * r for r in range(8)]
+    for body_len in [0, 1, 55, 56, 57, 63, 64, 65, 135, 136, 137, 199, 200, 201, 407, 408, 409, 1000] + cascade:
         body = torch.from_numpy(rng.integers(0, 256, body_len + 72, dtype=np.uint8)).to(cuda)
         body_plain = body.clone()
         root = from_numpy(rng.integers(0, 1 << 32, 8, dtype=np.uint64).astype(np.uint32), cuda)

@@ -8,7 +8,10 @@ cases 0, 1, p - 1, 2^32 - 1, 2^32 and 2^96 + 5):
   ``stark_tpu.ops.device_merkle.tree_arrays_with_root`` (XLA) and
   ``stark_tpu.ops.pallas_merkle.tree_levels(..., interpret=True)``;
 * ``DeviceMerkleTree`` against the host ``MerkleTree``: root and every
-  auth path.
+  auth path; at 2^13 leaves against the port's own host ``MerkleTree``
+  (root and four auth paths), no JAX;
+* the top kernel's plain version: its flat buffer cut by ``top_slabs``
+  equals the chain of ``level_hash`` at every width from 2 to 2^12.
 
 Tolerance: none (hashes are compared byte for byte).
 """
@@ -24,6 +27,7 @@ from stark_tpu.ops import device_merkle as jdm
 from stark_tpu.ops import field_ops as jfo
 from stark_tpu.ops.limbs import pack
 from stark_tpu.params import P
+from stark_tpu_torch.merkle import MerkleTree as PortMerkleTree
 from stark_tpu_torch.ops import cuda_merkle
 from stark_tpu_torch.ops import device_merkle as tdm
 from stark_tpu_torch.ops import field_ops as tfo
@@ -120,6 +124,33 @@ def test_gathered_siblings_equal_lazy_opens(vals, device_tree):
         assert other.open(i) == path
 
 
+def test_device_tree_at_2e13_matches_the_ports_host_tree():
+    n = 1 << 13
+    rng = np.random.default_rng(n)
+    vals = [(int(a) << 64 | int(b)) % P for a, b in zip(rng.integers(0, 1 << 63, n), rng.integers(0, 1 << 63, n))]
+    vals[:3] = [0, 1, P - 1]
+    tree = tdm.DeviceMerkleTree(tfo.to_mont(from_numpy(pack(vals), "cpu")))
+    host = PortMerkleTree.from_codeword(vals)
+    assert tree.root == host.root
+    for i in (0, 1, 4097, n - 1):
+        assert tree.open(i) == host.open(i)
+
+
+@pytest.mark.parametrize("log_w", range(1, 13))
+def test_top_slabs_of_merkle_top_are_the_level_chain(log_w):
+    w = 1 << log_w
+    level = torch.from_numpy(np.random.default_rng(w).integers(0, 1 << 32, (8, w), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    flat = cuda_merkle.merkle_top(level)  # the plain version on the CPU
+    assert flat.shape == (8 * (w - 1),)
+    slabs = tdm.top_slabs(flat, w)
+    assert [s.shape[1] for s in slabs] == [w >> k for k in range(1, log_w + 1)]
+    for slab in slabs:
+        level = tdm.level_hash(level)
+        assert slab.is_contiguous() and torch.equal(slab, level)
+    assert slabs[-1].data_ptr() == flat[-8:].data_ptr()  # the root is the last slab
+
+
 def test_kernel_wrappers_validate_inputs(digits):
     d = from_numpy(digits, "cpu")
     with pytest.raises(ValueError):
@@ -129,5 +160,8 @@ def test_kernel_wrappers_validate_inputs(digits):
     leaves = cuda_merkle.merkle_leaves(d)
     with pytest.raises(ValueError):
         cuda_merkle.merkle_level(leaves[:, :5])  # odd width, not contiguous
+    for w in (1, 6, 1 << 14):  # the top kernel takes powers of two from 2 to 2^13
+        with pytest.raises(ValueError):
+            cuda_merkle.merkle_top(torch.zeros((8, w), dtype=torch.int32))
     with pytest.raises(ValueError):
         tdm.DeviceMerkleTree(tfo.to_mont(from_numpy(pack([1] * 1024), "cpu")))  # below 2 * TAIL_WIDTH

@@ -74,6 +74,19 @@ def test_loops_are_the_innermost_bodies_in_address_order():
     assert body[0].opcodes["LDS"] == 1
 
 
+def test_local_accesses_count_local_loads_and_stores():
+    listing = """
+		Function : _ZN12_GLOBAL__N_15local_kernelEv
+        /*0000*/                   STL.64 [R1+0x8], R4 ;                     /* 0x0000080401007387 */
+        /*0010*/                   LDL.64 R6, [R1+0x8] ;                     /* 0x0000080001067983 */
+        /*0020*/               @P0 LDL R8, [R1] ;                            /* 0x0000000001080983 */
+        /*0030*/                   LDS R9, [R2] ;                            /* 0x0000000002097984 */
+        /*0040*/                   EXIT ;                                    /* 0x000000000000794d */
+"""
+    assert sass.local_accesses(sass.find(sass.functions(listing), "local_kernel")) == {"LDL": 2, "STL": 1}
+    assert sass.local_accesses(sass.find(sass.functions(LISTING), "flat_kernel")) == {"LDL": 0, "STL": 0}
+
+
 def test_seconds_take_the_slowest_of_issue_and_pipes():
     # 132 SMs at 1 GHz: 4 warp instructions a clock each issue, 2 on each pipe
     assert sass.Counts(issue=528, alu=0, fma=0).seconds(132, 1e9) == pytest.approx(1e-9)
