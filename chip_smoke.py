@@ -23,13 +23,19 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    the host Merkle tree, the FRI fold at 2^13 and 2^20, and the
    Fiat-Shamir round at transcript bodies of 0 to 1000 bytes and at the 8
    bodies the fib-2^16 cascade extends (also against hashlib, those 8
-   timed);
+   timed), and the field vector kernels (inversion with zeros mixed in,
+   prefix product, power table, and the elementwise product, sum and
+   difference with an (8, 1) column on either side) at the sizes of the
+   fib-2^16 prove's trace interpolation and boundary quotients, each timed;
    kernel times by CUDA events around launches queued back to back
    (``ops/timing.device_ms``), plain times around one call;
 3. FibonacciStark(1000) proved on the card, byte-identical to the port's
-   host prover (no backend) on the same seeded randomness;
+   host prover (no backend) on the same seeded randomness, its trace
+   interpolated on the card (the host interpolation raises while the card
+   proves);
 4. FibonacciStark(65536) proved on the card over its 2^20-point FRI
-   domain, with every kernel's launch counter > 0 for that prove, every
+   domain, its trace interpolated on the card, with every kernel's launch
+   counter > 0 for that prove, every
    NTT size it ran among those phase 2 checked (a line gives each size's
    launches beside its phase-2 times), and at least 2 FRI rounds fused
    into the device cascade; the proof must verify with the port's host
@@ -82,6 +88,14 @@ FS_BODY_BYTES = 3 * 72
 FS_CASCADE_BODIES = tuple(FS_BODY_BYTES + 72 * r for r in range(8))
 # level widths the top kernel is timed at against the level launches it replaces
 TOP_SWEEP = tuple(1 << k for k in range(9, 14))
+# the field vector kernels' sizes in the fib-2^16 prove: its n = 65,537 + 8
+# trace rows, n + 1 (q-factorials), 2n - 1 (the chirp convolution's table)
+# and the 2^20-point FRI domain (boundary quotients); each kernel's row of
+# the kernels line is at the size it runs longest in that prove
+TRACE_ROWS = 65537 + 8
+FIELD_SIZES = (TRACE_ROWS, TRACE_ROWS + 1, 2 * TRACE_ROWS - 1, 1 << 20)
+FIELD_MAIN = {"mont_inv": 1 << 20, "prefix_mul": 2 * TRACE_ROWS - 1, "geometric_table": 1 << 20,
+              "mont_binary": 1 << 20}
 
 
 def say(phase: str, **fields) -> None:
@@ -192,7 +206,7 @@ def main() -> int:
     from stark_tpu_torch.merkle import MerkleTree
     from stark_tpu_torch.models.fibonacci import FibonacciStark
     from stark_tpu_torch.ntt import NTT
-    from stark_tpu_torch.ops import cuda_fold, cuda_fs, cuda_merkle, cuda_ntt, kernels
+    from stark_tpu_torch.ops import cuda_field, cuda_fold, cuda_fs, cuda_merkle, cuda_ntt, kernels
     from stark_tpu_torch.ops import device_merkle as dm
     from stark_tpu_torch.ops import field_ops as fo
     from stark_tpu_torch.ops.device_fs import fs_round_plain
@@ -202,6 +216,7 @@ def main() -> int:
     from stark_tpu_torch.ops.timing import call_ms, device_ms
     from stark_tpu_torch.params import GENERATOR, P, R_MOD_P
     from stark_tpu_torch.rng import DeterministicRandom
+    from stark_tpu_torch.stark import Stark
 
     dev = torch.device("cuda")
 
@@ -257,6 +272,18 @@ def main() -> int:
         iterations = [L] * tw_shared + [L, log_l // 2 * L // 4, log_l % 2 * L // 2, L]
         return sum((b.counts * (i * (1 << log_b) / 32) for b, i in zip(body, iterations)), sass.Counts())
 
+    def per_thread(kernel: str, iterations: int = 1):
+        """Warp instructions a warp of ``kernel`` runs when each of its
+        innermost loops (at most one) runs ``iterations`` times: every
+        instruction once, the loop's body ``iterations - 1`` times more."""
+        ins = sass.find(funcs, kernel)
+        body = sass.loops(ins)
+        if len(body) > 1:
+            raise AssertionError(f"{kernel}: {len(body)} innermost loops in its SASS, expected at most one")
+        return sass.count(ins) + sum((b.counts * (iterations - 1) for b in body), sass.Counts())
+
+    # one field product: a sixth of the body of K7's chain loop (5 squarings, a multiply)
+    product = sass.loops(sass.find(funcs, "inv_kernel"))[0].counts * (1 / 6)
     top_parent = max(sass.loops(sass.find(funcs, "top_kernel")), key=lambda b: b.counts.issue)
     round_loop = keccak_round(sass, funcs)
     per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernel")),
@@ -266,9 +293,9 @@ def main() -> int:
                 "keccak_round": round_loop.counts}
 
     def bound_at(name: str, size: int):
-        """(bound_ms, bound_by) of one launch of a Merkle, fold or
-        Fiat-Shamir kernel at its launch size (leaves, level width,
-        codeword length, body bytes); the NTT passes' are computed in
+        """(bound_ms, bound_by) of one call of a Merkle, fold, Fiat-Shamir
+        or field kernel at its launch size (leaves, level width, codeword
+        length, body bytes, elements); the NTT passes' are computed in
         phase 2."""
         if name == "merkle_leaves":  # 4 digit words in, 8 digest words out a leaf
             return bound(48 * size, per_unit[name] * (size / 32))
@@ -281,6 +308,19 @@ def main() -> int:
         if name == "fs_round":  # body, root, 72 appended bytes, alpha; one warp runs the round loop
             blocks = (8 + size + 72) // 136 + 1
             return bound(size + 32 + 72 + 32, per_unit["keccak_round"] * (blocks * KECCAK_ROUNDS))
+        # the field functions: each input read once, each output written
+        # once, and the fewest products the function needs, not the ones the
+        # kernel runs: ~3 an element for an inversion (Montgomery's batch
+        # inversion), 1 for a prefix product, a power table or a product
+        warps = size / 32
+        if name == "mont_inv":
+            return bound(2 * LIMB_BYTES * size, product * (3 * warps))
+        if name == "prefix_mul":
+            return bound(2 * LIMB_BYTES * size, product * warps)
+        if name == "geometric_table":  # start and bit bases in, the table out
+            return bound(LIMB_BYTES * (size + (size - 1).bit_length() + 1), product * warps)
+        if name == "mont_binary":  # the product of two full operands
+            return bound(3 * LIMB_BYTES * size, product * warps)
         raise AssertionError(f"no bound for {name}")
 
     say("sass", sms=sms, clock_mhz=clock_hz / 1e6, local_memory=local_memory(sass, funcs),
@@ -459,28 +499,93 @@ def main() -> int:
         ms={"kernel": report["fs_round"][0], "plain": report["fs_round"][1], "bound": report["fs_round"][2],
             "bound_by": report["fs_round"][3]})
 
+    # the field vector kernels at the prove's sizes, each against its plain version
+    from stark_tpu_torch.ops.limbs import mont_tensor
+
+    field_base = FieldElement.primitive_nth_root(1 << 20).value
+    field_bases = mont_tensor([pow(field_base, 1 << b, P) for b in range(20)], dev)
+    field_start = mont_tensor([GENERATOR], dev)
+    column = mont_tensor([int(rng.integers(1, 1 << 62)) * 7919 % P], dev)
+
+    def field_calls(n):
+        """kernel name -> (kernel call, plain call) at n, the product first."""
+        a = from_numpy(seeded_mont(max(n, 3), n)[:, :n], dev)
+        a[:, 3::11] = 0  # zeros mixed in
+        b = from_numpy(seeded_mont(max(n, 3), n + 1)[:, :n], dev)
+        bases = field_bases[:, : (n - 1).bit_length()].contiguous()
+        calls = {"mont_inv": (lambda: cuda_field.mont_inv(a), lambda: fo.mont_inv(a)),
+                 "prefix_mul": (lambda: cuda_field.prefix_mul(b), lambda: fo.prefix_mul(b)),
+                 "geometric_table": (lambda: cuda_field.geometric_table(field_start, bases, n),
+                                     lambda: cuda_field.geometric_table_plain(field_start, bases, n))}
+        for op, op_name in ((cuda_field.MUL, "mul"), (cuda_field.ADD, "add"), (cuda_field.SUB, "sub")):
+            for side, (x, y) in (("", (a, b)), ("_column_a", (column, b)), ("_column_b", (a, column))):
+                calls[f"mont_binary/{op_name}{side}"] = (lambda op=op, x=x, y=y: cuda_field.mont_binary(op, x, y),
+                                                         lambda op=op, x=x, y=y: cuda_field._PLAIN[op](x, y))
+        return calls
+
+    field_errs = {}
+    for n in FIELD_SIZES:
+        calls = field_calls(n)
+        field_errs[n] = {name: max_abs_err(torch, kernel(), plain()) for name, (kernel, plain) in calls.items()}
+        if any(field_errs[n].values()):
+            raise AssertionError(f"field kernels disagree with their plain versions at n = {n}: {field_errs[n]}")
+        for name in ("mont_inv", "prefix_mul", "geometric_table", "mont_binary/mul"):
+            timed[name.split("/")[0], n] = device_ms(calls[name][0])
+        for name, main in FIELD_MAIN.items():
+            if main == n:
+                plain = calls["mont_binary/mul" if name == "mont_binary" else name][1]
+                report[name] = (timed[name, n], call_ms(plain), *bound_at(name, n))
+                errs[name] = 0
+    say("field_kernels", sizes=list(FIELD_SIZES), max_abs_err=field_errs,
+        warp_instructions_per_product=product._asdict(),
+        warp_instructions_per_thread={k: per_thread(k, i)._asdict() for k, i in (
+            ("inv_kernel", 23), ("scan_block_kernel", 8), ("scan_offsets_kernel", 1), ("geometric_kernel", 20),
+            ("binary_kernelILi0E", 1), ("binary_kernelILi1E", 1), ("binary_kernelILi2E", 1))},
+        ms={f"{name} @ {n}": timed[name, n] for name in FIELD_MAIN for n in FIELD_SIZES},
+        main={name: {"n": FIELD_MAIN[name], "kernel": report[name][0], "plain": report[name][1],
+                     "bound": report[name][2], "bound_by": report[name][3]} for name in FIELD_MAIN})
+
+    # the device proves must interpolate their traces on the card: the host
+    # interpolation raises while they run
+    host_interpolation = Stark._interpolate_trace
+
+    def refuse_host_interpolation(*args, **kwargs):
+        raise AssertionError("a prove on the card called the host trace interpolation")
+
     # -- 3. small prove: byte-identical to the port's host prover --------------
     a, b = FieldElement(3), FieldElement(7)
     host_result, host_proof = FibonacciStark(1000, device=None, rng=DeterministicRandom(11)).prove(a, b)
     small = FibonacciStark(1000, device=dev, rng=DeterministicRandom(11))
     if small.stark.fri_domain_length != 8192 or not small.stark._use_device_pipeline():
         raise AssertionError("fib-1000 did not take the device pipeline on its 8192-point domain")
-    result, proof = small.prove(a, b)
+    before = {k: kernels.LAUNCHES[k] for k in FIELD_MAIN}
+    Stark._interpolate_trace = refuse_host_interpolation
+    try:
+        result, proof = small.prove(a, b)
+    finally:
+        Stark._interpolate_trace = host_interpolation
     if result != host_result or proof != host_proof:
         raise AssertionError("fib-1000 proof on the card differs from the host prover's")
-    say("small_prove", steps=1000, fri_domain=8192, proof_bytes=len(proof), identical_to_host=True)
+    small_field = {k: kernels.LAUNCHES[k] - before[k] for k in FIELD_MAIN}
+    if not all(small_field.values()):
+        raise AssertionError(f"fib-1000 on the card did not launch every field kernel: {small_field}")
+    say("small_prove", steps=1000, fri_domain=8192, proof_bytes=len(proof), identical_to_host=True,
+        field_kernel_launches=small_field)
 
     # -- 4. the real prove ------------------------------------------------------
     steps = 65536
     model = FibonacciStark(steps, rng=DeterministicRandom(SEED))  # the card is the default device
     if model.stark.fri_domain_length != 1 << 20:
         raise AssertionError(f"unexpected FRI domain {model.stark.fri_domain_length}")
+    Stark._interpolate_trace = refuse_host_interpolation
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result, proof = model.prove(a, b)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     launches = dict(kernels.LAUNCHES)
     by_size = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
     ntt_launches = {n: {k: c for k, c in v.items() if k.startswith("ntt_")} for n, v in by_size.items()}
@@ -503,15 +608,27 @@ def main() -> int:
         raise AssertionError("the host verifier rejects the card's 2^16-step proof")
     if verifier.verify(a, b, result + FieldElement(1), proof):
         raise AssertionError("the host verifier accepts a wrong claimed result")
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model.prove(a, b)
     torch.cuda.synchronize()
     warm_prove_s = time.perf_counter() - t0
+    Stark._interpolate_trace = host_interpolation
+    warm_launches = dict(kernels.LAUNCHES)
     warm_stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
+    # the part of the warm prove outside the prover's stages, and the host
+    # trace build (FibonacciAir.trace, before Stark.prove) it holds
+    unstaged_s = warm_prove_s - sum(v for k, v in model.stark.last_profile.totals.items() if "/" not in k)
+    t0 = time.perf_counter()
+    model.air.trace(a, b)
+    trace_build_s = time.perf_counter() - t0
     say("prove", steps=steps, fri_domain=model.stark.fri_domain_length, prove_seconds=prove_s,
         warm_prove_seconds=warm_prove_s, verify_seconds=verify_s, proof_bytes=len(proof), fused_fri_rounds=fused,
-        launches=launches, ntt_launches_by_size=ntt_launches, stages_seconds=stages, warm_stages_seconds=warm_stages,
-        peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
+        launches=launches, warm_launches=warm_launches, ntt_launches_by_size=ntt_launches, stages_seconds=stages,
+        warm_stages_seconds=warm_stages, warm_unstaged_seconds=unstaged_s, trace_build_seconds=trace_build_s,
+        peak_device_mib=peak_mib,
+        warm_peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
     print(f"fused FRI rounds: {fused}", flush=True)
     say("ntt_sizes", rows=[{"n": n, "launches": ntt_launches.get(n, {}), **ntt_sizes[n]} for n in sorted(ntt_sizes)])
 
@@ -534,6 +651,8 @@ def main() -> int:
         if name == "fs_round":
             x = torch.zeros(size + 72, dtype=torch.uint8, device=dev)
             return lambda: cuda_fs.fs_round(x, size, 4, root)
+        if name in FIELD_MAIN:  # the elementwise kernel as the product of two full operands
+            return field_calls(size)["mont_binary/mul" if name == "mont_binary" else name][0]
         raise AssertionError(f"no timer for {name} at launch size {size}")
 
     prove_ms = dict.fromkeys(launches, 0.0)
@@ -542,8 +661,9 @@ def main() -> int:
         for name, count in counts.items():
             if (name, size) not in timed:
                 timed[name, size] = device_ms(launch_at(name, size))
-            prove_ms[name] += count * timed[name, size]
-            prove_bound_ms[name] += count * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
+            calls = count // cuda_field.prefix_launches(size) if name == "prefix_mul" else count
+            prove_ms[name] += calls * timed[name, size]
+            prove_bound_ms[name] += calls * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
                                              else bound_at(name, size)[0])
     if any(sum(v.get(name, 0) for v in by_size.values()) != launches[name] for name in launches):
         raise AssertionError(f"launches by size do not add up to the launch counts: {by_size} vs {launches}")
@@ -568,6 +688,10 @@ def main() -> int:
         "merkle_top": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:215"),
         "fri_fold": ("stark_tpu_torch/csrc/fold.cu", "stark_tpu/ops/pallas_fold.py:145"),
         "fs_round": ("stark_tpu_torch/csrc/fs.cu", "stark_tpu/ops/device_keccak.py:132"),
+        "mont_inv": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/field_ops.py:432"),
+        "prefix_mul": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/geometric_device.py:48"),
+        "geometric_table": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/device_prover.py:226"),
+        "mont_binary": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/field_ops.py:244"),
     }
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],

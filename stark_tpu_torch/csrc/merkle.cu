@@ -200,8 +200,9 @@ extern "C" int stark_merkle_level(const int32_t* level, int32_t* out, int64_t w,
 // words, the (8, w / 2^k) slabs of levels k = 1 .. log2 w, the root last.
 extern "C" int stark_merkle_top(const int32_t* level, int32_t* out, int64_t w, void* stream) {
     if (w < 2 || w > kTopMaxWidth || (w & (w - 1))) return cudaErrorInvalidValue;
-    static const cudaError_t opt_in = cudaFuncSetAttribute(top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                           static_cast<int>(top_smem_bytes(kTopMaxWidth)));
+    // the limit is the current device's: opt in at every launch, as the NTT passes do
+    const cudaError_t opt_in = cudaFuncSetAttribute(top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    static_cast<int>(top_smem_bytes(kTopMaxWidth)));
     if (opt_in != cudaSuccess) return opt_in;
     const int threads = static_cast<int>(w / 2 < 32 ? 32 : w / 2 > kTopThreads ? kTopThreads : w / 2);
     top_kernel<<<1, threads, top_smem_bytes(w), static_cast<cudaStream_t>(stream)>>>(

@@ -1,0 +1,162 @@
+"""GF(p) vector operations through the hand-written CUDA kernels K7-K10.
+
+The wrappers of ``csrc/fieldvec.cu``, the field arithmetic of device trace
+interpolation (:mod:`stark_tpu_torch.ops.geometric_device`) and of the
+boundary quotients:
+
+* :func:`mont_inv` (K7, ``stark_mont_inv``): a^(p-2), zero to zero;
+* :func:`prefix_mul` (K8, ``stark_prefix_mul``): inclusive prefix product
+  along the columns;
+* :func:`geometric_table` (K9, ``stark_geometric_table``): start * base^i;
+* :func:`mont_mul`, :func:`add`, :func:`sub`, :func:`neg` (K10,
+  ``stark_mont_binary``): one elementwise operation, either operand an
+  (8, 1) column broadcast along the other.
+
+In the JAX package these are XLA-fused functions with no Pallas form
+(``field_ops.mont_inv`` / ``mont_mul`` / ``add`` / ``sub``,
+``geometric_device.prefix_mont_mul``, ``device_prover.geometric_table``).
+Each wrapper checks dtype, shape and contiguity, runs its plain PyTorch
+version for CPU tensors, and on a CUDA tensor launches its kernel or
+raises; it refuses any other device.  Kernels and plain versions agree
+limb for limb.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..params import NUM_LIMBS
+from . import field_ops as fo
+from . import kernels
+from .cuda_fold import _check
+
+MUL, ADD, SUB = 0, 1, 2
+_PLAIN = {MUL: fo.mont_mul, ADD: fo.add, SUB: fo.sub}
+
+
+def _device(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one device of ``tensors``: CPU (plain version) or CUDA (kernel)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on different devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _columns(name: str, t: torch.Tensor) -> int:
+    _check(name, t)
+    n = int(t.shape[1])
+    if n == 0:
+        raise ValueError(f"{name}: empty")
+    return n
+
+
+# -- K10 ----------------------------------------------------------------------
+
+
+def mont_binary(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K10: ``a op b`` elementwise (op MUL: Montgomery product, ADD, SUB)
+    over (8, n) tensors, where either may be an (8, 1) column broadcast
+    along the other's n."""
+    if op not in _PLAIN:
+        raise ValueError(f"unknown op {op}")
+    na, nb = _columns("a", a), _columns("b", b)
+    if na != nb and 1 not in (na, nb):
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} do not broadcast")
+    n = max(na, nb)
+    dev = _device("mont_binary", a, b)
+    if dev.type == "cpu":
+        return _PLAIN[op](a, b)
+    out = torch.empty((NUM_LIMBS, n), dtype=torch.int32, device=dev)
+    kernels.launch("mont_binary", "stark_mont_binary", kernels.ptr(a), kernels.ptr(b), kernels.ptr(out), n, op,
+                   int(na < n), int(nb < n), device=dev, size=n)
+    return out
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return mont_binary(MUL, a, b)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return mont_binary(ADD, a, b)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return mont_binary(SUB, a, b)
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    """(-a) mod p: 0 - a, the zero a broadcast column."""
+    return sub(torch.zeros((NUM_LIMBS, 1), dtype=torch.int32, device=a.device), a)
+
+
+# -- K7 -----------------------------------------------------------------------
+
+
+def mont_inv(a: torch.Tensor) -> torch.Tensor:
+    """K7: elementwise inverse of an (8, n) Montgomery tensor, zero to zero."""
+    n = _columns("a", a)
+    dev = _device("mont_inv", a)
+    if dev.type == "cpu":
+        return fo.mont_inv(a)
+    out = torch.empty_like(a)
+    kernels.launch("mont_inv", "stark_mont_inv", kernels.ptr(a), kernels.ptr(out), n, device=dev, size=n)
+    return out
+
+
+# -- K8 -----------------------------------------------------------------------
+
+
+def prefix_launches(n: int) -> int:
+    """Kernel launches of one :func:`prefix_mul` of n elements on the card."""
+    return kernels.library().stark_prefix_launches(n)
+
+
+def prefix_mul(a: torch.Tensor) -> torch.Tensor:
+    """K8: [a0, a0*a1, a0*a1*a2, ...] of an (8, n) Montgomery tensor.  On
+    the card the entry point scans blocks of 2048 elements and, past one
+    block, scans the block totals and applies them: each kernel launch is
+    counted."""
+    n = _columns("a", a)
+    dev = _device("prefix_mul", a)
+    if dev.type == "cpu":
+        return fo.prefix_mul(a)
+    out = torch.empty_like(a)
+    scratch = torch.empty(NUM_LIMBS * max(1, kernels.library().stark_prefix_scratch(n)), dtype=torch.int32,
+                          device=dev)
+    kernels.launch("prefix_mul", "stark_prefix_mul", kernels.ptr(a), kernels.ptr(out), n, kernels.ptr(scratch),
+                   device=dev, size=n, launches=prefix_launches(n))
+    return out
+
+
+# -- K9 -----------------------------------------------------------------------
+
+
+def geometric_table_plain(start: torch.Tensor, bit_bases: torch.Tensor, n: int) -> torch.Tensor:
+    """start * base^i for i < n, multiplying by base^(2^b) where bit b of
+    i is set (log2(n) batched products)."""
+    acc = start.expand(NUM_LIMBS, n)
+    idx = torch.arange(n, device=start.device)
+    for b in range((n - 1).bit_length()):
+        acc = torch.where((((idx >> b) & 1) == 1)[None, :], fo.mont_mul(acc, bit_bases[:, b : b + 1]), acc)
+    return acc.contiguous()
+
+
+def geometric_table(start: torch.Tensor, bit_bases: torch.Tensor, n: int) -> torch.Tensor:
+    """K9: the (8, n) Montgomery table start * base^i, i < n, from the
+    (8, 1) Montgomery ``start`` and the (8, k) bit bases base^(2^b),
+    k = (n - 1).bit_length()."""
+    _check("start", start, 1)
+    _check("bit_bases", bit_bases)
+    bits = (n - 1).bit_length() if n > 0 else 0
+    if n <= 0 or bit_bases.shape[1] != bits:
+        raise ValueError(f"n = {n} needs {bits} bit bases, got {bit_bases.shape[1]}")
+    dev = _device("geometric_table", start, bit_bases)
+    if dev.type == "cpu":
+        return geometric_table_plain(start, bit_bases, n)
+    out = torch.empty((NUM_LIMBS, n), dtype=torch.int32, device=dev)
+    kernels.launch("geometric_table", "stark_geometric_table", kernels.ptr(start), kernels.ptr(bit_bases), bits,
+                   kernels.ptr(out), n, device=dev, size=n)
+    return out

@@ -14,8 +14,11 @@ Commitments hash on the device (:mod:`stark_tpu_torch.ops.device_merkle`);
 the large FRI rounds run as the fused commit cascade
 (:meth:`DeviceProverCore.fri_cascade`), with Fiat-Shamir on the device.
 
-Not in this module yet: ``extend_mont`` (device trace interpolation); the
-prover interpolates the trace on the host.
+Coefficients that never lived on the host (device trace interpolation,
+:mod:`stark_tpu_torch.ops.geometric_device`) extend through
+:meth:`DeviceProverCore.extend_mont`.  Power tables and inversions run
+through the field vector kernels (:mod:`stark_tpu_torch.ops.cuda_field`:
+K9 and K7 on the card).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from ..merkle import MerkleTree
 from ..params import NUM_LIMBS, P
-from . import device_merkle
+from . import cuda_field, device_merkle
 from . import field_ops as fo
 from .backend import best_plan
 from .cuda_fold import fri_fold
@@ -161,13 +164,9 @@ class DeviceCodewordView:
 
 def geometric_table(base: int, start: int, n: int, device) -> torch.Tensor:
     """Montgomery (8, n) table of start * base^i, built on the device from
-    the bits of i (log2(n) batched multiplies)."""
-    acc = mont_tensor([start % P], device).expand(NUM_LIMBS, n)
-    idx = torch.arange(n, device=acc.device)
-    for b in range((n - 1).bit_length()):
-        factor = mont_tensor([pow(base, 1 << b, P)], device)
-        acc = torch.where((((idx >> b) & 1) == 1)[None, :], fo.mont_mul(acc, factor), acc)
-    return acc.contiguous()
+    the bit bases base^(2^b), made on the host (K9 on the card)."""
+    bit_bases = mont_tensor([pow(base, 1 << b, P) for b in range((n - 1).bit_length())], device)
+    return cuda_field.geometric_table(mont_tensor([start % P], device), bit_bases, n)
 
 
 def fetch_absorb(jobs) -> None:
@@ -263,6 +262,18 @@ class DeviceProverCore:
         if m < self.n:
             dev = torch.cat([dev, torch.zeros((NUM_LIMBS, self.n - m), dtype=torch.int32, device=self.device)], dim=1)
         return self.plan.apply(fo.to_mont(dev), self._fwd_tabs, False)
+
+    def extend_mont(self, coeffs_mont: torch.Tensor) -> torch.Tensor:
+        """Montgomery coefficients (8, m) on the device -> (8, n) codeword
+        over the coset: the RS-extension of coefficients that never lived
+        on the host (device trace interpolation), zero-padded to n."""
+        m = int(coeffs_mont.shape[1])
+        if m > self.n:
+            raise ValueError("coefficient vector longer than the domain")
+        dev = coeffs_mont.to(self.device)
+        if m < self.n:
+            dev = torch.cat([dev, torch.zeros((NUM_LIMBS, self.n - m), dtype=torch.int32, device=self.device)], dim=1)
+        return self.plan.apply(dev, self._fwd_tabs, False)
 
     def extend_codeword(self, coeffs: Sequence[int]) -> DeviceCodeword:
         return DeviceCodeword(self.extend(coeffs), self)
@@ -367,8 +378,8 @@ class DeviceProverCore:
     # -- batch inversion ---------------------------------------------------
 
     def inverse(self, mont: torch.Tensor) -> torch.Tensor:
-        """Elementwise inversion via Fermat (zero maps to zero)."""
-        return fo.mont_inv(mont)
+        """Elementwise inversion via Fermat (zero maps to zero; K7 on the card)."""
+        return cuda_field.mont_inv(mont.contiguous())
 
     # -- the combination ---------------------------------------------------
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, P, P_TOP, R2_MOD_P, R_MOD_P
-from .limbs import _b0_table, from_numpy, limbs_of
+from .limbs import _b0_table, from_numpy, limbs_of, pack, to_numpy, unpack
 
 _P9 = limbs_of(P) + [0]
 
@@ -135,33 +135,38 @@ def mont_one(like: torch.Tensor) -> torch.Tensor:
     return _const(R_MOD_P, like).to(torch.int32).expand(like.shape).contiguous()
 
 
-def mont_pow_fixed(a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a~ ^ exponent in Montgomery form: 4-bit windowed exponentiation
-    (a 15-entry power table, then 4 squarings and at most one multiply
-    per hex digit)."""
-    if exponent == 0:
-        return mont_one(a)
-    powers = [a]
-    for _ in range(min(exponent, 15) - 1):
-        powers.append(mont_mul(powers[-1], a))
-    digits = []
-    e = exponent
-    while e:
-        digits.append(e & 0xF)
-        e >>= 4
-    digits.reverse()
-    acc = powers[digits[0] - 1]
-    for d in digits[1:]:
-        for _ in range(4):
-            acc = mont_mul(acc, acc)
-        if d:
-            acc = mont_mul(acc, powers[d - 1])
-    return acc
+def prefix_mul(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products along the last axis of an (8, n)
+    Montgomery tensor: log2(n) Hillis-Steele rounds of full-width products
+    (the JAX package's ``geometric_device.prefix_mont_mul``)."""
+    n = int(a.shape[-1])
+    one = mont_one(a[:, :1])
+    shift = 1
+    while shift < n:
+        a = mont_mul(a, torch.cat([one.expand(NUM_LIMBS, shift), a[:, : n - shift]], dim=1))
+        shift *= 2
+    return a
 
 
 def mont_inv(a: torch.Tensor) -> torch.Tensor:
-    """Batched inversion via Fermat: a~^(p-2) = (a^-1)~; zero maps to zero."""
-    return mont_pow_fixed(a, P - 2)
+    """Batched inversion of an (8, n) Montgomery tensor; zero maps to zero.
+
+    Montgomery's batch inversion: with the zeros set to one, an element's
+    inverse is the product of the elements before it and of those after it
+    (two prefix scans) times the inverse of the total, which the host
+    inverts as one Python int (the Montgomery form of x^-1 is
+    (xR)^-1 * R^2).  About 2 log2(n) + 2 full-width products instead of
+    Fermat's ~160 (the card's kernel, ``csrc/fieldvec.cu`` K7, runs the
+    Fermat chain); the inverse is unique, so the limbs agree."""
+    zero = is_zero(a)[None, :]
+    one = mont_one(a[:, :1])
+    x = torch.where(zero, one, a)
+    before = prefix_mul(x)
+    after = torch.flip(prefix_mul(torch.flip(x, dims=[1])), dims=[1])
+    others = mont_mul(torch.cat([one, before[:, :-1]], dim=1), torch.cat([after[:, 1:], one], dim=1))
+    total = unpack(to_numpy(before[:, -1:]))[0]
+    total_inv = from_numpy(pack([pow(total, -1, P) * R2_MOD_P % P]), a.device)
+    return torch.where(zero, a, mont_mul(others, total_inv))
 
 
 def _digit_limbs(d: torch.Tensor) -> torch.Tensor:

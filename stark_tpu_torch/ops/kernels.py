@@ -30,7 +30,7 @@ from typing import Dict
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("field.cuh", "ntt.cu", "merkle.cu", "fold.cu", "fs.cu")
+_SOURCES = ("field.cuh", "ntt.cu", "merkle.cu", "fold.cu", "fs.cu", "fieldvec.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stark_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,12 +51,20 @@ _SIGNATURES = {
     "stark_merkle_top": [_P, _P, _I64, _P],
     "stark_fri_fold": [_P, _P, _P, _P, _I64, _P],
     "stark_fs_round": [_P, _I64, _U64, _P, _P, _P],
+    "stark_mont_inv": [_P, _P, _I64, _P],
+    "stark_prefix_mul": [_P, _P, _I64, _P, _P],
+    "stark_prefix_scratch": [_I64],
+    "stark_prefix_launches": [_I64],
+    "stark_geometric_table": [_P, _P, _I, _P, _I64, _P],
+    "stark_mont_binary": [_P, _P, _P, _I64, _I, _I, _I, _P],
 }
+#: entry points that return something other than a CUDA error code
+_RESTYPES = {"stark_prefix_scratch": _I64}
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
     "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_top": 0, "fri_fold": 0,
-    "fs_round": 0,
+    "fs_round": 0, "mont_inv": 0, "prefix_mul": 0, "geometric_table": 0, "mont_binary": 0,
 }
 #: size of the launch -> kernel name -> launches since the last reset: the
 #: transform's points (NTT passes), the leaves or the level's width (Merkle
@@ -139,23 +147,23 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
 
 
-def launch(kernel: str, entry: str, *args, device: torch.device, size: int) -> None:
+def launch(kernel: str, entry: str, *args, device: torch.device, size: int, launches: int = 1) -> None:
     """Call one C entry point on ``device``'s current stream, raise if it
-    reports a CUDA error, and count the launch (also under ``size`` in
-    :data:`LAUNCHES_BY_SIZE`)."""
+    reports a CUDA error, and count the ``launches`` kernel launches it
+    made (also under ``size`` in :data:`LAUNCHES_BY_SIZE`)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[kernel] += launches
     by_kernel = LAUNCHES_BY_SIZE.setdefault(size, {})
-    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    by_kernel[kernel] = by_kernel.get(kernel, 0) + launches
 
 
 def ptr(t) -> int:

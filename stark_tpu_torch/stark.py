@@ -1136,7 +1136,13 @@ class Stark:
         )
         weights_mont = mont_tensor([w.value for w in weights], core.device)
 
-        trace_cws = tuple(core.extend(tp.coeffs) for tp in trace_polynomials)
+        trace_cws = tuple(
+            # host Polynomial, or a device-resident Montgomery coefficient
+            # tensor from the device trace interpolation
+            core.extend(tp.coeffs) if hasattr(tp, "coeffs")
+            else core.extend_mont(tp)
+            for tp in trace_polynomials
+        )
 
         fn = core.combination_fn(
             structure, len(bq_codewords), self.expansion_factor
@@ -1208,27 +1214,72 @@ class Stark:
             with prof.region("randomizer_poly/tree"):
                 randomizer_tree = core.merkle_tree(randomizer_codeword)
 
+        # long traces: interpolate, RS-extend and form boundary quotients
+        # entirely on the device (device chirp interpolation + pointwise
+        # eval-space division by the boundary zeroifier; exact division
+        # makes the codewords bit-identical to the host polynomial path)
+        dev_interp = len(trace) > 256
         with prof.region("trace_interpolation"):
-            trace_domain = self.omicron_domain[: len(trace)]
-            trace_polynomials = []
-            for s in range(self.num_registers):
-                column = [trace[c][s] for c in range(len(trace))]
-                trace_polynomials.append(
-                    self._interpolate_trace(trace_domain, column)
-                )
+            if dev_interp:
+                from .ops import cuda_field as cf
+                from .ops.geometric_device import device_geometric_interpolate
+                from .ops.limbs import from_numpy, pack
+                from .params import R2_MOD_P
+
+                # REDC(a * R^2) = a * R: a column into Montgomery form
+                r2 = from_numpy(pack([R2_MOD_P]), core.device)
+                trace_polynomials = []
+                for s in range(self.num_registers):
+                    column = [trace[c][s].value for c in range(len(trace))]
+                    col_mont = cf.mont_mul(from_numpy(pack(column), core.device), r2)
+                    trace_polynomials.append(
+                        device_geometric_interpolate(
+                            col_mont, 1, self.omicron.value
+                        )
+                    )
+            else:
+                trace_domain = self.omicron_domain[: len(trace)]
+                trace_polynomials = []
+                for s in range(self.num_registers):
+                    column = [trace[c][s] for c in range(len(trace))]
+                    trace_polynomials.append(
+                        self._interpolate_trace(trace_domain, column)
+                    )
 
         with prof.region("boundary_polys"):
             interpolants = self.boundary_interpolants(boundary)
             zeroifiers = self.boundary_zeroifiers(boundary)
-            boundary_quotients = [
-                (trace_polynomials[s] - interpolants[s]) / zeroifiers[s]
-                for s in range(self.num_registers)
-            ]
+            if not dev_interp:
+                boundary_quotients = [
+                    (trace_polynomials[s] - interpolants[s]) / zeroifiers[s]
+                    for s in range(self.num_registers)
+                ]
 
         with prof.region("bq_extend"):
-            boundary_quotient_codewords = [
-                core.extend_codeword(bq.coeffs) for bq in boundary_quotients
-            ]
+            if dev_interp:
+                from .ops.device_prover import DeviceCodeword, geometric_table
+                from .ops.geometric_device import horner_eval
+
+                x_tab = geometric_table(
+                    self.omega.value, self.generator.value,
+                    self.fri_domain_length, core.device,
+                )
+                boundary_quotient_codewords = []
+                for s in range(self.num_registers):
+                    t_cw = core.extend_mont(trace_polynomials[s])
+                    i_cw = horner_eval(interpolants[s].coeffs, x_tab)
+                    z_cw = horner_eval(zeroifiers[s].coeffs, x_tab)
+                    bq_mont = cf.mont_mul(
+                        cf.sub(t_cw, i_cw), cf.mont_inv(z_cw)
+                    )
+                    boundary_quotient_codewords.append(
+                        DeviceCodeword(bq_mont, core)
+                    )
+            else:
+                boundary_quotient_codewords = [
+                    core.extend_codeword(bq.coeffs)
+                    for bq in boundary_quotients
+                ]
         # dispatch EVERY commitment's device work before the first root
         # fetch blocks: device trees are lazy (ops/device_merkle.py), so
         # the hash kernels all queue up front.  The randomizer extend +

@@ -184,3 +184,90 @@ def test_fibonacci_proof_on_the_card_equals_host(cuda):
     assert model.stark.fri.last_fused_rounds == 3
     assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     assert FibonacciStark(1000, device=None).verify(a, b, result, proof)
+
+
+# the field vector kernels (K7-K10): edge sizes, and the fib-2^16 prove's
+# 65,545 trace rows, 2n - 1 = 131,089 and its 2^20-point FRI domain
+FIELD_SIZES = [1, 2, 255, 1025, 65545, 131089, 1 << 20]
+
+
+def _field_mont(n: int, seed: int, device):
+    from stark_tpu_torch.ops.limbs import from_numpy, seeded_mont
+
+    return from_numpy(seeded_mont(max(n, 3), seed)[:, :n], device)
+
+
+def _launched(name: str, call, launches: int = 1):
+    from stark_tpu_torch.ops import kernels
+
+    before = kernels.LAUNCHES[name]
+    out = call()
+    assert kernels.LAUNCHES[name] == before + launches
+    return out
+
+
+@pytest.mark.parametrize("n", FIELD_SIZES)
+def test_mont_inv_kernel_matches_plain(cuda, n):
+    from stark_tpu_torch.ops import cuda_field, field_ops
+
+    a = _field_mont(n, n, cuda)
+    a[:, ::3] = 0  # zeros mixed in: they map to zero
+    got = _launched("mont_inv", lambda: cuda_field.mont_inv(a))
+    assert torch.equal(got, field_ops.mont_inv(a))
+
+
+@pytest.mark.parametrize("n", FIELD_SIZES)
+def test_prefix_mul_kernel_matches_plain(cuda, n):
+    from stark_tpu_torch.ops import cuda_field, field_ops
+
+    a = _field_mont(n, n + 1, cuda)
+    got = _launched("prefix_mul", lambda: cuda_field.prefix_mul(a), cuda_field.prefix_launches(n))
+    assert torch.equal(got, field_ops.prefix_mul(a))
+
+
+@pytest.mark.parametrize("n", FIELD_SIZES)
+def test_geometric_table_kernel_matches_plain(cuda, n):
+    from stark_tpu_torch.ops import cuda_field
+    from stark_tpu_torch.ops.limbs import mont_tensor
+
+    base = FieldElement.primitive_nth_root(1 << 21).value
+    bits = (n - 1).bit_length()
+    bases = mont_tensor([pow(base, 1 << b, P) for b in range(bits)], cuda)
+    start = mont_tensor([GENERATOR], cuda)
+    got = _launched("geometric_table", lambda: cuda_field.geometric_table(start, bases, n))
+    assert torch.equal(got, cuda_field.geometric_table_plain(start, bases, n))
+
+
+@pytest.mark.parametrize("n", FIELD_SIZES)
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_mont_binary_kernel_matches_plain(cuda, n, op):
+    """Both operands full, and an (8, 1) column on either side."""
+    from stark_tpu_torch.ops import cuda_field
+
+    code = {"mul": cuda_field.MUL, "add": cuda_field.ADD, "sub": cuda_field.SUB}[op]
+    a, b = _field_mont(n, 2 * n, cuda), _field_mont(n, 2 * n + 1, cuda)
+    column = _field_mont(4, 5, cuda)[:, 3:4].contiguous()
+    for x, y in ((a, b), (column, b), (a, column), (column, column)):
+        got = _launched("mont_binary", lambda: cuda_field.mont_binary(code, x, y))
+        assert torch.equal(got, cuda_field._PLAIN[code](x, y))
+
+
+def test_device_geometric_interpolate_on_the_card_equals_host(cuda):
+    """The fib-2^16 prove's interpolation size, 65,545 points of a
+    geometric progression, against the port's host chirp interpolation."""
+    from stark_tpu_torch.geometric import geometric_interpolate
+    from stark_tpu_torch.ops import kernels
+    from stark_tpu_torch.ops.geometric_device import device_geometric_interpolate
+    from stark_tpu_torch.ops.limbs import mont_tensor, to_numpy, unpack
+
+    n = 65545
+    q = FieldElement.primitive_nth_root(1 << 17).value
+    rng = np.random.default_rng(n)
+    ys = [int(v) % P for v in rng.integers(0, 1 << 62, n)]
+    ys[0] = 0
+    kernels.reset_launch_counts()
+    got = device_geometric_interpolate(mont_tensor(ys, cuda), 1, q)
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("mont_inv", "prefix_mul", "geometric_table", "mont_binary"))
+    r_inv = pow(R_MOD_P, -1, P)
+    want = geometric_interpolate([pow(q, i, P) for i in range(n)], ys, q)
+    assert [v * r_inv % P for v in unpack(to_numpy(got))] == want

@@ -4,8 +4,9 @@
 * the backend seam's NTT stages against the host NTT;
 * ``FibonacciStark(1000)`` (8192-point FRI domain: the device pipeline's
   floor) proved through the port's device pipeline with its plain kernel
-  versions — byte-identical to the ``stark_tpu`` host proof on the same
-  seed, accepted by the host verifier, a wrong claim rejected;
+  versions, its trace interpolated by the device arm — byte-identical to
+  the ``stark_tpu`` host proof on the same seed, accepted by the host
+  verifier, a wrong claim rejected;
 * the port's host prover (no backend) byte-identical to ``stark_tpu``'s;
 * the port's wiring (its own ``Fri``, its own prover core) and its CLI;
 * that the port is self-contained: no module of it, and not
@@ -44,6 +45,7 @@ from stark_tpu_torch.ops.device_prover import DeviceProverCore
 from stark_tpu_torch.ops.fold import fold_mont
 from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, to_numpy
 from stark_tpu_torch.rng import DeterministicRandom as PortRandom
+from stark_tpu_torch.stark import Stark
 
 # The suite runs several pytest-xdist workers side by side; more than one
 # torch thread per worker oversubscribes the cores, and the threads'
@@ -99,13 +101,22 @@ def test_backend_refuses_a_missing_card(monkeypatch):
 
 @pytest.fixture(scope="module")
 def proofs():
+    """fib-1000 from the JAX host prover and from the port's device
+    pipeline; the port's host trace interpolation raises, so its prove
+    must take the device interpolation arm (more than 256 trace rows)."""
     seed = 11
     host = HostFibonacciStark(1000, rng=DeterministicRandom(seed))
     assert host.stark.fri_domain_length == 8192
     assert not host.stark._use_device_pipeline()
     host_result, host_proof = host.prove(A, B)
     port = FibonacciStark(1000, device="cpu", rng=PortRandom(seed))
-    result, proof = port.prove(PA, PB)
+
+    def host_interpolation(*args, **kwargs):
+        raise AssertionError("the device prove called the host trace interpolation")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Stark, "_interpolate_trace", host_interpolation)
+        result, proof = port.prove(PA, PB)
     return host_result, host_proof, port, result, proof
 
 
