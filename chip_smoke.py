@@ -2,7 +2,7 @@
 """Drive the torch prover's main path once on one CUDA card.
 
     python3 chip_smoke.py               # the whole check, below
-    python3 chip_smoke.py --times DIR   # NTT, Fiat-Shamir and top Merkle times of the checkout at DIR
+    python3 chip_smoke.py --times DIR   # NTT, Fiat-Shamir, top Merkle, K7 and K9 times of the checkout at DIR
 
 Phases (one line each; any failure raises and the exit code is non-zero):
 
@@ -26,9 +26,13 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    timed), and the field vector kernels (inversion with zeros mixed in,
    prefix product, power table, and the elementwise product, sum and
    difference with an (8, 1) column on either side) at the sizes of the
-   fib-2^16 prove's trace interpolation and boundary quotients, each timed;
-   kernel times by CUDA events around launches queued back to back
-   (``ops/timing.device_ms``), plain times around one call;
+   fib-2^16 prove's trace interpolation and boundary quotients, each timed,
+   and untimed on either side of one 2048-element inversion block and of
+   2^20, the inversion also with zeros at its blocks' first and last
+   elements, a block of zeros and all zeros; the inversion's fixed work
+   a block timed at one element and at one block; kernel times by CUDA
+   events around launches queued back to back (``ops/timing.device_ms``),
+   plain times around one call;
 3. FibonacciStark(1000) proved on the card, byte-identical to the port's
    host prover (no backend) on the same seeded randomness, its trace
    interpolated on the card (the host interpolation raises while the card
@@ -50,11 +54,13 @@ warp instructions (counted in the SASS for this run's shapes) over the
 issue and pipe rates of the card's SMs at their top clock.
 
 ``--times DIR`` times the NTT passes at every size, the Fiat-Shamir round
-at the cascade's 8 bodies and, where it has one, the top Merkle kernel at
-2^9 to 2^13 of the checkout at DIR (for paired runs against another
-commit unpacked with ``git archive``) on this checkout's inputs and
-timers, one JSON line each, after a line of the local-memory
-instructions and the Keccak round loop in DIR's library.
+at the cascade's 8 bodies and, where it has them, the top Merkle kernel at
+2^9 to 2^13 and the inversion (K7) and power table (K9) at 1 (K7's fixed
+work a block), 65,545 and 2^20 elements of the checkout at DIR (for
+paired runs against another commit unpacked with ``git archive``) on
+this checkout's inputs, timers and plain versions, one JSON line each,
+after a line of the local-memory instructions, the Keccak round loop and
+the price of a field product in DIR's library.
 
 The script imports nothing of JAX or of the ``stark_tpu`` package.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -96,6 +102,38 @@ TRACE_ROWS = 65537 + 8
 FIELD_SIZES = (TRACE_ROWS, TRACE_ROWS + 1, 2 * TRACE_ROWS - 1, 1 << 20)
 FIELD_MAIN = {"mont_inv": 1 << 20, "prefix_mul": 2 * TRACE_ROWS - 1, "geometric_table": 1 << 20,
               "mont_binary": 1 << 20}
+# elements one K7 block inverts (csrc/fieldvec.cu kInvChunk); the field
+# kernels are also checked, untimed, on either side of one such block and
+# of the 2^20 domain, and K7 at zero patterns around its blocks
+INV_CHUNK = 2048
+FIELD_EDGES = (INV_CHUNK - 1, INV_CHUNK, INV_CHUNK + 1, (1 << 20) - 1, (1 << 20) + 1)
+ZERO_SIZES = (INV_CHUNK + 1, (1 << 20) + 1)
+
+
+def field_operands(limbs, field, params, n: int, dev):
+    """The field kernels' seeded operands at n, made with the given
+    modules of the port: a (zeros mixed in), b, and the power table's
+    start and bit bases (of a primitive 2^21-th root)."""
+    a = limbs.from_numpy(limbs.seeded_mont(max(n, 3), n)[:, :n], dev)
+    a[:, 3::11] = 0
+    b = limbs.from_numpy(limbs.seeded_mont(max(n, 3), n + 1)[:, :n], dev)
+    root = field.FieldElement.primitive_nth_root(1 << 21).value
+    bases = limbs.mont_tensor([pow(root, 1 << k, params.P) for k in range((n - 1).bit_length())], dev)
+    return a, b, limbs.mont_tensor([params.GENERATOR], dev), bases
+
+
+def zero_patterns(a) -> dict:
+    """K7's inputs with zeros where its blocks begin and end: the first
+    and last element of the first two blocks and of the whole input, a
+    whole block of zeros (where there are three blocks), and all zeros."""
+    n = a.shape[1]
+    edges = a.clone()
+    edges[:, [0, INV_CHUNK - 1, INV_CHUNK, min(2 * INV_CHUNK - 1, n - 1), n - 1]] = 0
+    out = {"block_edges": edges, "all_zero": a.new_zeros(a.shape)}
+    if n > 2 * INV_CHUNK:
+        out["zero_block"] = a.clone()
+        out["zero_block"][:, INV_CHUNK : 2 * INV_CHUNK] = 0
+    return out
 
 
 def say(phase: str, **fields) -> None:
@@ -138,6 +176,18 @@ def keccak_round(sass, funcs):
                key=lambda b: (b.opcodes["SHFL"], b.opcodes["LOP3"]))
 
 
+def product_price(sass, funcs):
+    """Warp instructions of one field product: a sixth of the body of the
+    Fermat chain's window loop in K7 (5 squarings, a multiply), the one
+    loop of K7 that touches no memory and has no barrier."""
+    loops = sass.loops(sass.find(funcs, "inv_kernel"))
+    chain = [b for b in loops if not {"LDS", "STS", "BAR", "LDG", "STG"} & set(b.opcodes)]
+    if len(chain) != 1:
+        raise AssertionError(f"K7's SASS has {len(chain)} product-only loops, expected the Fermat chain's one: "
+                             f"{[dict(b.opcodes) for b in loops]}")
+    return chain[0].counts * (1 / 6)
+
+
 def local_memory(sass, funcs) -> dict:
     """Kernel name -> its local-memory loads and stores, where it has any."""
     counts = {name: sass.local_accesses(ins) for name, ins in funcs.items()}
@@ -146,17 +196,21 @@ def local_memory(sass, funcs) -> dict:
 
 def times_of(tree: str) -> int:
     """``--times DIR``: :func:`ntt_pass_times` of the checkout at ``tree``
-    at every size, its Fiat-Shamir round at the cascade's bodies and its
-    top Merkle kernel, with this checkout's inputs, timers and plain
-    versions."""
+    at every size, its Fiat-Shamir round at the cascade's bodies, its top
+    Merkle kernel and its inversion (K7) and power table (K9), with this
+    checkout's inputs, timers and plain versions."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch finds no CUDA device: this check needs one card")
     sys.path.insert(0, REPO)
+    from stark_tpu_torch import field, params
+    from stark_tpu_torch.ops import limbs as this_limbs
     from stark_tpu_torch.ops import sass
+    from stark_tpu_torch.ops.cuda_field import geometric_table_plain
     from stark_tpu_torch.ops.device_fs import fs_round_plain
+    from stark_tpu_torch.ops.field_ops import mont_inv as mont_inv_plain
     from stark_tpu_torch.ops.limbs import seeded_mont
     from stark_tpu_torch.ops.timing import call_ms, device_ms
 
@@ -172,7 +226,9 @@ def times_of(tree: str) -> int:
     kernels.library()
     funcs = sass.functions(sass.disassemble(str(kernels.build_info["path"]), kernels._nvcc()))
     say("sass_of", tree=tree, local_memory=local_memory(sass, funcs),
-        keccak_round=dict(keccak_round(sass, funcs).opcodes))
+        keccak_round=dict(keccak_round(sass, funcs).opcodes),
+        warp_instructions_per_product=product_price(sass, funcs)._asdict()
+        if any("inv_kernel" in f for f in funcs) else None)
     for logn in NTT_LOGNS:
         limbs = torch.from_numpy(seeded_mont(1 << logn, logn).view(np.int32)).to(dev)
         say("ntt_times", tree=tree, n=1 << logn,
@@ -188,6 +244,20 @@ def times_of(tree: str) -> int:
         for w in TOP_SWEEP:
             level = torch.from_numpy(seeded_mont(w, w).view(np.int32)).to(dev)
             say("top_times", tree=tree, width=w, kernel=device_ms(lambda: cuda_merkle.merkle_top(level)))
+    try:
+        from stark_tpu_torch.ops import cuda_field  # the trees since the field kernels
+    except ImportError:
+        cuda_field = None
+    # K7 at one element is one block's fixed work (a Fermat chain in every tree)
+    for n in (1, TRACE_ROWS, 1 << 20) if cuda_field else ():
+        a, _, start, bases = field_operands(this_limbs, field, params, n, dev)
+        calls = {"mont_inv": (lambda: cuda_field.mont_inv(a), lambda: mont_inv_plain(a)),
+                 "geometric_table": (lambda: cuda_field.geometric_table(start, bases, n),
+                                     lambda: geometric_table_plain(start, bases, n))}
+        for name, (kernel, plain) in calls.items():
+            if not torch.equal(kernel(), plain()):
+                raise AssertionError(f"{name} of {tree} disagrees with the plain version at n = {n}")
+        say("field_times", tree=tree, n=n, **{name: device_ms(kernel) for name, (kernel, _) in calls.items()})
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0
@@ -272,18 +342,17 @@ def main() -> int:
         iterations = [L] * tw_shared + [L, log_l // 2 * L // 4, log_l % 2 * L // 2, L]
         return sum((b.counts * (i * (1 << log_b) / 32) for b, i in zip(body, iterations)), sass.Counts())
 
-    def per_thread(kernel: str, iterations: int = 1):
-        """Warp instructions a warp of ``kernel`` runs when each of its
-        innermost loops (at most one) runs ``iterations`` times: every
-        instruction once, the loop's body ``iterations - 1`` times more."""
+    def per_thread(kernel: str, *iterations: int):
+        """Warp instructions a warp of ``kernel`` runs when its innermost
+        loops, in address order, run ``iterations`` times: every
+        instruction once, each loop's body its iterations - 1 times more."""
         ins = sass.find(funcs, kernel)
         body = sass.loops(ins)
-        if len(body) > 1:
-            raise AssertionError(f"{kernel}: {len(body)} innermost loops in its SASS, expected at most one")
-        return sass.count(ins) + sum((b.counts * (iterations - 1) for b in body), sass.Counts())
+        if len(body) != len(iterations):
+            raise AssertionError(f"{kernel}: {len(body)} innermost loops in its SASS, expected {len(iterations)}")
+        return sass.count(ins) + sum((b.counts * (i - 1) for b, i in zip(body, iterations)), sass.Counts())
 
-    # one field product: a sixth of the body of K7's chain loop (5 squarings, a multiply)
-    product = sass.loops(sass.find(funcs, "inv_kernel"))[0].counts * (1 / 6)
+    product = product_price(sass, funcs)
     top_parent = max(sass.loops(sass.find(funcs, "top_kernel")), key=lambda b: b.counts.issue)
     round_loop = keccak_round(sass, funcs)
     per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernel")),
@@ -499,24 +568,21 @@ def main() -> int:
         ms={"kernel": report["fs_round"][0], "plain": report["fs_round"][1], "bound": report["fs_round"][2],
             "bound_by": report["fs_round"][3]})
 
-    # the field vector kernels at the prove's sizes, each against its plain version
+    # the field vector kernels at the prove's sizes and at block and domain
+    # edges, each against its plain version
+    from stark_tpu_torch import field, params
+    from stark_tpu_torch.ops import limbs
     from stark_tpu_torch.ops.limbs import mont_tensor
 
-    field_base = FieldElement.primitive_nth_root(1 << 20).value
-    field_bases = mont_tensor([pow(field_base, 1 << b, P) for b in range(20)], dev)
-    field_start = mont_tensor([GENERATOR], dev)
     column = mont_tensor([int(rng.integers(1, 1 << 62)) * 7919 % P], dev)
 
     def field_calls(n):
         """kernel name -> (kernel call, plain call) at n, the product first."""
-        a = from_numpy(seeded_mont(max(n, 3), n)[:, :n], dev)
-        a[:, 3::11] = 0  # zeros mixed in
-        b = from_numpy(seeded_mont(max(n, 3), n + 1)[:, :n], dev)
-        bases = field_bases[:, : (n - 1).bit_length()].contiguous()
+        a, b, start, bases = field_operands(limbs, field, params, n, dev)
         calls = {"mont_inv": (lambda: cuda_field.mont_inv(a), lambda: fo.mont_inv(a)),
                  "prefix_mul": (lambda: cuda_field.prefix_mul(b), lambda: fo.prefix_mul(b)),
-                 "geometric_table": (lambda: cuda_field.geometric_table(field_start, bases, n),
-                                     lambda: cuda_field.geometric_table_plain(field_start, bases, n))}
+                 "geometric_table": (lambda: cuda_field.geometric_table(start, bases, n),
+                                     lambda: cuda_field.geometric_table_plain(start, bases, n))}
         for op, op_name in ((cuda_field.MUL, "mul"), (cuda_field.ADD, "add"), (cuda_field.SUB, "sub")):
             for side, (x, y) in (("", (a, b)), ("_column_a", (column, b)), ("_column_b", (a, column))):
                 calls[f"mont_binary/{op_name}{side}"] = (lambda op=op, x=x, y=y: cuda_field.mont_binary(op, x, y),
@@ -524,11 +590,14 @@ def main() -> int:
         return calls
 
     field_errs = {}
-    for n in FIELD_SIZES:
+    # the prove's sizes last: the operands still alive while phase 4 proves are 2^20's
+    for n in FIELD_EDGES + FIELD_SIZES:
         calls = field_calls(n)
         field_errs[n] = {name: max_abs_err(torch, kernel(), plain()) for name, (kernel, plain) in calls.items()}
         if any(field_errs[n].values()):
             raise AssertionError(f"field kernels disagree with their plain versions at n = {n}: {field_errs[n]}")
+        if n not in FIELD_SIZES:
+            continue
         for name in ("mont_inv", "prefix_mul", "geometric_table", "mont_binary/mul"):
             timed[name.split("/")[0], n] = device_ms(calls[name][0])
         for name, main in FIELD_MAIN.items():
@@ -536,11 +605,31 @@ def main() -> int:
                 plain = calls["mont_binary/mul" if name == "mont_binary" else name][1]
                 report[name] = (timed[name, n], call_ms(plain), *bound_at(name, n))
                 errs[name] = 0
-    say("field_kernels", sizes=list(FIELD_SIZES), max_abs_err=field_errs,
+    zero_errs = {f"{name} @ {n}": max_abs_err(torch, cuda_field.mont_inv(x), fo.mont_inv(x))
+                 for n in ZERO_SIZES
+                 for name, x in zero_patterns(field_operands(limbs, field, params, n, dev)[0]).items()}
+    if any(zero_errs.values()):
+        raise AssertionError(f"K7 disagrees with its plain version at zeros around its blocks: {zero_errs}")
+    # K7's fixed work a block, its Fermat chains (8 lanes of one warp) the
+    # longest part of it: one block at one element and at a whole block,
+    # beside an elementwise launch of one element (the floor of a launch)
+    one = field_calls(1)
+    inv_block = {"mont_inv @ 1": device_ms(one["mont_inv"][0]),
+                 f"mont_inv @ {INV_CHUNK}": device_ms(field_calls(INV_CHUNK)["mont_inv"][0]),
+                 "mont_binary/mul @ 1": device_ms(one["mont_binary/mul"][0])}
+    # K9 at 2^20: its grid's 2^m threads each run m products of the bit
+    # bases, then step through the rest of their elements
+    step_bits = cuda_field.geometric_step_bits(1 << 20)
+    steps = -(-(1 << 20) // (1 << step_bits))
+    say("field_kernels", sizes=list(FIELD_SIZES), edge_sizes=list(FIELD_EDGES), max_abs_err=field_errs,
+        k7_zero_patterns=zero_errs, k7_one_block_ms=inv_block, k9_split_2e20={"m": step_bits, "per_thread": steps},
         warp_instructions_per_product=product._asdict(),
-        warp_instructions_per_thread={k: per_thread(k, i)._asdict() for k, i in (
-            ("inv_kernel", 23), ("scan_block_kernel", 8), ("scan_offsets_kernel", 1), ("geometric_kernel", 20),
-            ("binary_kernelILi0E", 1), ("binary_kernelILi1E", 1), ("binary_kernelILi2E", 1))},
+        warp_instructions_per_thread={k: per_thread(k, *i)._asdict() for k, i in (
+            # K7: warp 0 of a block, which runs the chain's 23 windows; K9: a
+            # thread's bit base loaded, at most m bits, then its steps
+            ("inv_kernel", (23,)), ("scan_block_kernel", (8,)), ("scan_offsets_kernel", ()),
+            ("geometric_kernel", (1, step_bits, steps - 1)),
+            ("binary_kernelILi0E", ()), ("binary_kernelILi1E", ()), ("binary_kernelILi2E", ()))},
         ms={f"{name} @ {n}": timed[name, n] for name in FIELD_MAIN for n in FIELD_SIZES},
         main={name: {"n": FIELD_MAIN[name], "kernel": report[name][0], "plain": report[name][1],
                      "bound": report[name][2], "bound_by": report[name][3]} for name in FIELD_MAIN})

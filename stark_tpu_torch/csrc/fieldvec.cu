@@ -5,7 +5,7 @@
 // form, used by device trace interpolation and the boundary quotients of
 // Stark._prove_device (stark_tpu/ops/geometric_device.py, stark.py):
 //
-//   K7  stark_mont_inv         a^(p-2), 0 -> 0: field_ops.mont_inv
+//   K7  stark_mont_inv         a^-1, 0 -> 0: field_ops.mont_inv
 //                              (stark_tpu/ops/field_ops.py:432, :333)
 //   K8  stark_prefix_mul       inclusive prefix product along the columns:
 //                              geometric_device.prefix_mont_mul (:48)
@@ -25,11 +25,19 @@
 // Bounds on the card.  Each function moves 32-96 bytes an element and
 // needs at most ~3 products an element (an inversion, by Montgomery's batch
 // inversion; 1 for the others), so all four are bound by memory at
-// 3.35 TB/s.  The kernels here run more products than that: K7 162 an
-// element (131 squarings, 31 multiplies), K9 one a bit of n, K8 2-3; so K7
-// and K9 run far above their bounds.  Each design is the simple one: one
-// element a thread (K7, K9, K10), a block-local scan with a second launch
-// for the block totals (K8).
+// 3.35 TB/s.  What each design does about it:
+//   K7  Montgomery's batch inversion inside each block of kInvChunk
+//       elements, in one launch: a thread's run of products, the prefix
+//       and suffix products of each warp's run totals, one Fermat chain
+//       (131 squarings, 31 multiplies) a warp, the 8 of a block side by
+//       side, then each run swept backwards; ~4 products an element and
+//       no global scratch.  A block waits one chain's latency.
+//   K8  a block-local scan, and past one block a scan of the block totals
+//       and an offsets launch (2-3 products an element, 3 launches).
+//   K9  a thread raises the base to its first index by the bit bases,
+//       then steps by base^T, T the threads of the grid: ~2 products an
+//       element at 2^20, stores coalesced.
+//   K10 one element a thread.
 
 #include <cuda_runtime.h>
 
@@ -63,16 +71,16 @@ __device__ __forceinline__ Fe square_times(Fe x) {
     return x;
 }
 
+__device__ __forceinline__ bool fe_is_zero(const Fe& a) { return (a.w[0] | a.w[1] | a.w[2] | a.w[3]) == 0u; }
+
 // ---------------------------------------------------------------------------
-// K7: a^(p-2) with p - 2 = 406 * 2^119 + (2^119 - 1).  a^406 by its bits,
-// then 23 windows of five ones and one of four: acc <- acc^32 * a^31, and
-// acc^16 * a^15 last.  131 squarings and 31 multiplies, in registers.
+// The one-element Fermat chain, x^(p-2) with p - 2 = 406 * 2^119 +
+// (2^119 - 1): x^406 by its bits, then 23 windows of five ones and one of
+// four: acc <- acc^32 * x^31, and acc^16 * x^15 last.  131 squarings and
+// 31 multiplies, in registers; its window loop holds nothing but products.
 // ---------------------------------------------------------------------------
 
-__global__ void inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, int64_t n) {
-    const int64_t i = global_index();
-    if (i >= n) return;
-    const Fe x = stark::fe_load(a, n, i);
+__device__ __forceinline__ Fe fe_inv(const Fe& x) {
     const Fe x2 = fe_mul(x, x);
     const Fe x3 = fe_mul(x2, x);
     const Fe x15 = fe_mul(square_times<2>(x3), x3);  // x^12 * x^3
@@ -87,8 +95,106 @@ __global__ void inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ 
     }
 #pragma unroll 1
     for (int w = 0; w < 23; ++w) acc = fe_mul(square_times<5>(acc), x31);
-    acc = fe_mul(square_times<4>(acc), x15);
-    stark::fe_store(out, n, i, acc);
+    return fe_mul(square_times<4>(acc), x15);
+}
+
+// ---------------------------------------------------------------------------
+// K7: Montgomery's batch inversion, a block a chunk of kInvChunk elements,
+// one inverse a warp.  The chunk is read coalesced into shared memory
+// (past n: one).  A thread takes its run of kInvItems consecutive
+// elements, zeros as one (a bit mask keeps where they were), and
+// multiplies out the run's prefixes R_0, R_1, ... in registers.  Each warp
+// scans its 32 run totals both ways at once with shuffles (5 rounds), so a
+// thread has the product E of the warp's runs before its own and S of
+// those after, and the warp's total W; lanes 0-7 of warp 0 invert the 8
+// warp totals by the Fermat chain side by side, on the vector pipes.  Then
+// acc = W^-1 * E * S is the inverse of the run's product, and from the
+// run's end down out_k = acc * R_{k-1}, acc <- acc * a_k, out_0 = acc;
+// zeros are written as zero.  The results go back through shared memory,
+// stored coalesced.  A block waits for one chain's latency, not its
+// instructions; kInvBlocksPerSM resident blocks (64 registers a thread)
+// take a 2^20 inversion in one wave, so its blocks wait for it together.
+// ---------------------------------------------------------------------------
+
+constexpr int kInvItems = 8;                     // consecutive elements a thread inverts
+constexpr int kInvChunk = kThreads * kInvItems;  // elements a block inverts
+constexpr int kWarps = kThreads / 32;
+constexpr int kInvBlocksPerSM = 4;
+constexpr unsigned kAll = 0xFFFFFFFFu;
+
+__device__ __forceinline__ Fe shfl_up(const Fe& a, int d) {
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.w[k] = __shfl_up_sync(kAll, a.w[k], d);
+    return r;
+}
+
+__device__ __forceinline__ Fe shfl_down(const Fe& a, int d) {
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.w[k] = __shfl_down_sync(kAll, a.w[k], d);
+    return r;
+}
+
+__global__ void __launch_bounds__(kThreads, kInvBlocksPerSM)
+    inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, int64_t n) {
+    __shared__ Fe items[kInvChunk];
+    __shared__ Fe warp_total[kWarps];
+    const int64_t base = static_cast<int64_t>(blockIdx.x) * kInvChunk;
+    const int t = threadIdx.x;
+    const int lane = t % 32;
+    const Fe one = mont_one();
+#pragma unroll
+    for (int k = 0; k < kInvItems; ++k) {
+        const int64_t i = base + k * kThreads + t;
+        items[k * kThreads + t] = i < n ? stark::fe_load(a, n, i) : one;
+    }
+    __syncthreads();
+    Fe* const mine = items + t * kInvItems;
+    Fe run[kInvItems];
+    unsigned zeros = 0;
+#pragma unroll
+    for (int k = 0; k < kInvItems; ++k) {
+        const bool zero = fe_is_zero(mine[k]);
+        const Fe v = zero ? one : mine[k];
+        zeros |= static_cast<unsigned>(zero) << k;
+        run[k] = k == 0 ? v : fe_mul(run[k - 1], v);
+    }
+    // inclusive prefix and suffix products of the warp's run totals
+    Fe before = run[kInvItems - 1];
+    Fe after = before;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const Fe b = shfl_up(before, d);
+        const Fe s = shfl_down(after, d);
+        if (lane >= d) before = fe_mul(b, before);
+        if (lane + d < 32) after = fe_mul(after, s);
+    }
+    if (lane == 31) warp_total[t / 32] = before;
+    const Fe e = shfl_up(before, 1);  // exclusive: the runs before this one
+    const Fe s = shfl_down(after, 1);  // and after it
+    __syncthreads();
+    if (t < kWarps) warp_total[t] = fe_inv(warp_total[t]);
+    __syncthreads();
+    Fe acc = warp_total[t / 32];
+    if (lane > 0) acc = fe_mul(acc, e);
+    if (lane < 31) acc = fe_mul(acc, s);
+    const Fe zero{};
+#pragma unroll
+    for (int k = kInvItems - 1; k > 0; --k) {
+        const bool is_zero = (zeros >> k) & 1u;
+        const Fe v = is_zero ? one : mine[k];
+        const Fe inv = fe_mul(acc, run[k - 1]);
+        mine[k] = is_zero ? zero : inv;
+        acc = fe_mul(acc, v);
+    }
+    mine[0] = (zeros & 1u) ? zero : acc;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kInvItems; ++k) {
+        const int64_t i = base + k * kThreads + t;
+        if (i < n) stark::fe_store(out, n, i, items[k * kThreads + t]);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -171,25 +277,51 @@ cudaError_t scan(const int32_t* in, int32_t* out, int64_t n, int32_t* scratch, c
 }
 
 // ---------------------------------------------------------------------------
-// K9: out[i] = start * prod_{bit b of i set} bases[b].  The bases sit in
-// shared memory (one thread loads each: bits <= kMaxBits < kThreads); a
-// thread multiplies by the base or by one at every bit, so the loop, one
-// product an iteration, has no branch.
+// K9: out[i] = start * base^i from the bit bases base^(2^b), b < bits, in
+// shared memory.  The grid has T = 2^m threads (m = step_bits(n)); thread
+// i0 < T takes the elements i0 + k*T, k < ceil(n / T): it multiplies start
+// by the bit bases of the bits set among the m low bits of i0, then steps
+// by base^T = bases[m], one product an element.  Neighbouring threads
+// write neighbouring elements, so every store is coalesced.  Where m = the
+// bits of n - 1, T >= n and each thread writes its one element.
 // ---------------------------------------------------------------------------
 
+constexpr int kStepMinBits = 15;  // at least 2^15 threads where n allows (about a block an SM)
+constexpr int kStepLogItems = 4;  // else 2^4 elements a thread
+
+int bit_length(int64_t v) { return v > 0 ? 64 - __builtin_clzll(static_cast<unsigned long long>(v)) : 0; }
+
+int step_bits(int64_t n) {
+    const int bits = bit_length(n - 1);
+    const int m = bits - kStepLogItems > kStepMinBits ? bits - kStepLogItems : kStepMinBits;
+    return m < bits ? m : bits;
+}
+
 __global__ void geometric_kernel(const int32_t* __restrict__ start, const int32_t* __restrict__ bases, int bits,
-                                 int32_t* __restrict__ out, int64_t n) {
-    static_assert(kMaxBits <= kThreads, "one thread loads each bit base");
+                                 int m, int32_t* __restrict__ out, int64_t n) {
     __shared__ Fe base[kMaxBits];
-    if (static_cast<int>(threadIdx.x) < bits) base[threadIdx.x] = stark::fe_load(bases, bits, threadIdx.x);
+    for (int b = threadIdx.x; b < bits; b += blockDim.x) base[b] = stark::fe_load(bases, bits, b);
     __syncthreads();
-    const int64_t i = global_index();
-    if (i >= n) return;
+    const int64_t i0 = global_index();
+    const int64_t stride = int64_t{1} << m;
+    if (i0 >= n || i0 >= stride) return;
     Fe acc = stark::fe_load(start, 1, 0);
-    const Fe one = mont_one();
 #pragma unroll 1
-    for (int b = 0; b < bits; ++b) acc = fe_mul(acc, ((i >> b) & 1) ? base[b] : one);
-    stark::fe_store(out, n, i, acc);
+    for (int b = 0; b < m; ++b) {
+        const bool bit = (i0 >> b) & 1;
+        if (bit || b < 5) {  // from bit 5 up a warp's 32 threads share the bit: skipped where it is 0
+            const Fe p = fe_mul(acc, base[b]);
+            acc = bit ? p : acc;
+        }
+    }
+    stark::fe_store(out, n, i0, acc);
+    if (m >= bits) return;  // T >= n: one element a thread
+    const Fe step = base[m];
+#pragma unroll 1
+    for (int64_t i = i0 + stride; i < n; i += stride) {
+        acc = fe_mul(acc, step);
+        stark::fe_store(out, n, i, acc);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -214,7 +346,8 @@ unsigned grid(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kTh
 // a, out: (8, n).
 extern "C" int stark_mont_inv(const int32_t* a, int32_t* out, int64_t n, void* stream) {
     if (n <= 0) return cudaErrorInvalidValue;
-    inv_kernel<<<grid(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, out, n);
+    const unsigned blocks = static_cast<unsigned>((n + kInvChunk - 1) / kInvChunk);
+    inv_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, out, n);
     return cudaGetLastError();
 }
 
@@ -244,9 +377,15 @@ extern "C" int64_t stark_prefix_scratch(int64_t n) {
 extern "C" int stark_geometric_table(const int32_t* start, const int32_t* bases, int bits, int32_t* out, int64_t n,
                                      void* stream) {
     if (n <= 0 || bits < 0 || bits > kMaxBits || (bits < 63 && (int64_t{1} << bits) < n)) return cudaErrorInvalidValue;
-    geometric_kernel<<<grid(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(start, bases, bits, out, n);
+    const int m = step_bits(n);
+    const int64_t threads = (int64_t{1} << m) < n ? int64_t{1} << m : n;
+    geometric_kernel<<<grid(threads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(start, bases, bits, m, out, n);
     return cudaGetLastError();
 }
+
+// The m of stark_geometric_table at n: its grid has min(2^m, n) threads,
+// each writing the elements i0 + k * 2^m below n.
+extern "C" int stark_geometric_step_bits(int64_t n) { return n > 0 ? step_bits(n) : -1; }
 
 // a, b: (8, n), or (8, 1) where a_col / b_col is set; out: (8, n);
 // op: 0 product, 1 sum, 2 difference.

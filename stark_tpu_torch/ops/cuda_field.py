@@ -4,10 +4,14 @@ The wrappers of ``csrc/fieldvec.cu``, the field arithmetic of device trace
 interpolation (:mod:`stark_tpu_torch.ops.geometric_device`) and of the
 boundary quotients:
 
-* :func:`mont_inv` (K7, ``stark_mont_inv``): a^(p-2), zero to zero;
+* :func:`mont_inv` (K7, ``stark_mont_inv``): a^-1, zero to zero, by
+  Montgomery's batch inversion inside each block of 2048 elements (one
+  Fermat chain a warp's total), in one launch;
 * :func:`prefix_mul` (K8, ``stark_prefix_mul``): inclusive prefix product
   along the columns;
-* :func:`geometric_table` (K9, ``stark_geometric_table``): start * base^i;
+* :func:`geometric_table` (K9, ``stark_geometric_table``): start * base^i,
+  each of 2^m threads raising the base to its first index by the bit
+  bases and stepping by base^(2^m) (:func:`geometric_step_bits`);
 * :func:`mont_mul`, :func:`add`, :func:`sub`, :func:`neg` (K10,
   ``stark_mont_binary``): one elementwise operation, either operand an
   (8, 1) column broadcast along the other.
@@ -96,7 +100,10 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 
 
 def mont_inv(a: torch.Tensor) -> torch.Tensor:
-    """K7: elementwise inverse of an (8, n) Montgomery tensor, zero to zero."""
+    """K7: elementwise inverse of an (8, n) Montgomery tensor, zero to
+    zero.  On the card one launch: each block of 2048 elements is a batch
+    inversion of its own (prefix and suffix products, each warp's total
+    inverted by a Fermat chain, a block's 8 side by side)."""
     n = _columns("a", a)
     dev = _device("mont_inv", a)
     if dev.type == "cpu":
@@ -144,10 +151,20 @@ def geometric_table_plain(start: torch.Tensor, bit_bases: torch.Tensor, n: int) 
     return acc.contiguous()
 
 
+def geometric_step_bits(n: int) -> int:
+    """The m of :func:`geometric_table` at n on the card: its grid has
+    min(2^m, n) threads, thread i0 writes the elements i0 + k * 2^m < n,
+    stepping by the bit base base^(2^m) (m = the bits of n - 1 where that
+    grid is one element a thread)."""
+    return kernels.library().stark_geometric_step_bits(n)
+
+
 def geometric_table(start: torch.Tensor, bit_bases: torch.Tensor, n: int) -> torch.Tensor:
     """K9: the (8, n) Montgomery table start * base^i, i < n, from the
     (8, 1) Montgomery ``start`` and the (8, k) bit bases base^(2^b),
-    k = (n - 1).bit_length()."""
+    k = (n - 1).bit_length().  On the card a thread multiplies out its
+    first power from the bit bases, then one product an element
+    (:func:`geometric_step_bits`)."""
     _check("start", start, 1)
     _check("bit_bases", bit_bases)
     bits = (n - 1).bit_length() if n > 0 else 0

@@ -378,7 +378,9 @@ class DeviceProverCore:
     # -- batch inversion ---------------------------------------------------
 
     def inverse(self, mont: torch.Tensor) -> torch.Tensor:
-        """Elementwise inversion via Fermat (zero maps to zero; K7 on the card)."""
+        """Elementwise inversion, zero to zero: K7 on the card (a batch
+        inversion a block of 2048 elements), the plain batch inversion of
+        ``field_ops.mont_inv`` on the CPU."""
         return cuda_field.mont_inv(mont.contiguous())
 
     # -- the combination ---------------------------------------------------

@@ -156,8 +156,10 @@ def mont_inv(a: torch.Tensor) -> torch.Tensor:
     (two prefix scans) times the inverse of the total, which the host
     inverts as one Python int (the Montgomery form of x^-1 is
     (xR)^-1 * R^2).  About 2 log2(n) + 2 full-width products instead of
-    Fermat's ~160 (the card's kernel, ``csrc/fieldvec.cu`` K7, runs the
-    Fermat chain); the inverse is unique, so the limbs agree."""
+    Fermat's ~160.  The card's kernel (``csrc/fieldvec.cu`` K7) is a batch
+    inversion too, but one a block of 2048 elements, each warp's total
+    inverted by a Fermat chain on the card; the inverse is unique, so the
+    limbs agree."""
     zero = is_zero(a)[None, :]
     one = mont_one(a[:, :1])
     x = torch.where(zero, one, a)

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "stark_prefix_scratch": [_I64],
     "stark_prefix_launches": [_I64],
     "stark_geometric_table": [_P, _P, _I, _P, _I64, _P],
+    "stark_geometric_step_bits": [_I64],
     "stark_mont_binary": [_P, _P, _P, _I64, _I, _I, _I, _P],
 }
 #: entry points that return something other than a CUDA error code

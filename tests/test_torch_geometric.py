@@ -127,6 +127,21 @@ def test_plain_mont_inv_matches_pow(n):
     assert torch.equal(fo.mont_inv(a), cf.mont_inv(a))
 
 
+@pytest.mark.parametrize("pattern", ["first_and_last", "run", "all"])
+def test_plain_mont_inv_zero_patterns(pattern):
+    """Zeros first and last, a run of zeros, and zeros only: each maps to
+    zero and every other element to its inverse (Python's pow)."""
+    vals = _values(257, 8)
+    if pattern == "first_and_last":
+        vals[0] = vals[-1] = 0
+    elif pattern == "run":
+        vals[100:164] = [0] * 64
+    else:
+        vals = [0] * 257
+    got = _host(cf.mont_inv(_dev(vals)))
+    assert got == [pow(v, -1, P) if v else 0 for v in vals]
+
+
 def test_plain_prefix_and_binary_ops():
     a, b = _values(300, 3), _values(300, 4)
     ta, tb, col = _dev(a), _dev(b), _dev([99])

@@ -186,9 +186,11 @@ def test_fibonacci_proof_on_the_card_equals_host(cuda):
     assert FibonacciStark(1000, device=None).verify(a, b, result, proof)
 
 
-# the field vector kernels (K7-K10): edge sizes, and the fib-2^16 prove's
-# 65,545 trace rows, 2n - 1 = 131,089 and its 2^20-point FRI domain
-FIELD_SIZES = [1, 2, 255, 1025, 65545, 131089, 1 << 20]
+# the field vector kernels (K7-K10): edge sizes (of a 256-thread block, of
+# K7's 2048-element block and of 2^20), and the fib-2^16 prove's 65,545
+# trace rows, 2n - 1 = 131,089 and its 2^20-point FRI domain
+FIELD_SIZES = [1, 2, 255, 256, 257, 1025, 2047, 2048, 2049, 65545, 131089, (1 << 20) - 1, 1 << 20, (1 << 20) + 1]
+INV_CHUNK = 2048  # elements one K7 block inverts (csrc/fieldvec.cu kInvChunk)
 
 
 def _field_mont(n: int, seed: int, device):
@@ -216,6 +218,24 @@ def test_mont_inv_kernel_matches_plain(cuda, n):
     assert torch.equal(got, field_ops.mont_inv(a))
 
 
+@pytest.mark.parametrize("n", [INV_CHUNK + 1, 3 * INV_CHUNK + 5, (1 << 20) + 1])
+@pytest.mark.parametrize("pattern", ["block_edges", "zero_block", "all_zero"])
+def test_mont_inv_kernel_zero_patterns(cuda, n, pattern):
+    """Zeros at the first and last element of K7's blocks and of the
+    input, a whole block of zeros, and an input of zeros only."""
+    from stark_tpu_torch.ops import cuda_field, field_ops
+
+    a = _field_mont(n, n, cuda)
+    if pattern == "block_edges":
+        a[:, [0, INV_CHUNK - 1, INV_CHUNK, min(2 * INV_CHUNK - 1, n - 1), n - 1]] = 0
+    elif pattern == "zero_block":
+        a[:, INV_CHUNK : 2 * INV_CHUNK] = 0
+    else:
+        a.zero_()
+    got = _launched("mont_inv", lambda: cuda_field.mont_inv(a))
+    assert torch.equal(got, field_ops.mont_inv(a))
+
+
 @pytest.mark.parametrize("n", FIELD_SIZES)
 def test_prefix_mul_kernel_matches_plain(cuda, n):
     from stark_tpu_torch.ops import cuda_field, field_ops
@@ -232,6 +252,24 @@ def test_geometric_table_kernel_matches_plain(cuda, n):
 
     base = FieldElement.primitive_nth_root(1 << 21).value
     bits = (n - 1).bit_length()
+    bases = mont_tensor([pow(base, 1 << b, P) for b in range(bits)], cuda)
+    start = mont_tensor([GENERATOR], cuda)
+    got = _launched("geometric_table", lambda: cuda_field.geometric_table(start, bases, n))
+    assert torch.equal(got, cuda_field.geometric_table_plain(start, bases, n))
+
+
+@pytest.mark.parametrize("n", [(1 << 15) + 1, 1 << 16])
+def test_geometric_table_kernel_steps_by_its_last_bit_base(cuda, n):
+    """Tables whose grid steps by base^(2^m) with m = bits - 1, the last
+    bit base the wrapper passes (a step of two elements a thread, the
+    second past n for all but one thread at 2^15 + 1)."""
+    from stark_tpu_torch.ops import cuda_field
+    from stark_tpu_torch.ops.limbs import mont_tensor
+
+    base = FieldElement.primitive_nth_root(1 << 21).value
+    bits = (n - 1).bit_length()
+    assert cuda_field.geometric_step_bits(n) == bits - 1
+    assert cuda_field.geometric_step_bits(1 << 15) == 15  # one element a thread up to 2^15
     bases = mont_tensor([pow(base, 1 << b, P) for b in range(bits)], cuda)
     start = mont_tensor([GENERATOR], cuda)
     got = _launched("geometric_table", lambda: cuda_field.geometric_table(start, bases, n))
