@@ -2,7 +2,7 @@
 """Drive the torch prover's main path once on one CUDA card.
 
     python3 chip_smoke.py               # the whole check, below
-    python3 chip_smoke.py --times DIR   # NTT, Fiat-Shamir, top Merkle, K7 and K9 times of the checkout at DIR
+    python3 chip_smoke.py --times DIR   # NTT, Fiat-Shamir, Merkle, K7, K8 and K9 times of the checkout at DIR
 
 Phases (one line each; any failure raises and the exit code is non-zero):
 
@@ -19,7 +19,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    (the level kernel timed at every width of a 2^20 tree), the top
    kernel at every width from 2 to 2^13 (timed from 2^9 to 2^13 against
    the chain of level launches it replaces, the split at ``TOP_WIDTH``
-   among them), a 2^13-leaf device tree (root and auth paths) against
+   among them), the subtrees kernel from every width 2^10 to 2^19 down to
+   512 (timed against the chain of level launches it replaces; the
+   prove's 11 trees split at each candidate ``SUBTREE_WIDTH``, failing if
+   the constant's split takes more than 5 % longer than the cheapest), a
+   2^13-leaf device tree (root and auth paths) against
    the host Merkle tree, the FRI fold at 2^13 and 2^20, and the
    Fiat-Shamir round at transcript bodies of 0 to 1000 bytes and at the 8
    bodies the fib-2^16 cascade extends (also against hashlib, those 8
@@ -28,7 +32,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    difference with an (8, 1) column on either side) at the sizes of the
    fib-2^16 prove's trace interpolation and boundary quotients, each timed,
    and untimed on either side of one 2048-element inversion block and of
-   2^20, the inversion also with zeros at its blocks' first and last
+   2^20, the prefix product also at 2^21 + 1 and 2^23 (more tiles than
+   the card holds at once; one launch a call, on inputs without a zero
+   prefix), the inversion also with zeros at its blocks' first and last
    elements, a block of zeros and all zeros; the inversion's fixed work
    a block timed at one element and at one block; kernel times by CUDA
    events around launches queued back to back (``ops/timing.device_ms``),
@@ -39,13 +45,17 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    proves);
 4. FibonacciStark(65536) proved on the card over its 2^20-point FRI
    domain, its trace interpolated on the card, with every kernel's launch
-   counter > 0 for that prove, every
+   counter > 0 for that prove, the level kernel launched only on levels
+   wider than ``SUBTREE_WIDTH`` and the subtrees kernel once a tree, the
+   prefix product once a call at the sizes of ``PROVE_PREFIX_CALLS``, every
    NTT size it ran among those phase 2 checked (a line gives each size's
    launches beside its phase-2 times), and at least 2 FRI rounds fused
    into the device cascade; the proof must verify with the port's host
    verifier and a wrong claim must fail; then each kernel's device time
    in that prove: its launches at each size times its time at that size
-   (timed in phase 2, or now for sizes phase 2 did not time);
+   (timed in phase 2, or now for sizes phase 2 did not time), the level
+   kernel's split into wide and middle levels, and the middle levels as
+   the chain of level launches the subtrees kernel replaces;
 5. a JSON line of the kernels, then the last line
    {"ok": true, "device": {...}}.
 
@@ -54,9 +64,11 @@ warp instructions (counted in the SASS for this run's shapes) over the
 issue and pipe rates of the card's SMs at their top clock.
 
 ``--times DIR`` times the NTT passes at every size, the Fiat-Shamir round
-at the cascade's 8 bodies and, where it has them, the top Merkle kernel at
-2^9 to 2^13 and the inversion (K7) and power table (K9) at 1 (K7's fixed
-work a block), 65,545 and 2^20 elements of the checkout at DIR (for
+at the cascade's 8 bodies, the middle levels of the prove's trees (2^13
+to 2^17 wide, down to 512, as DIR routes them) and, where it has them, the
+top Merkle kernel at 2^9 to 2^13, the inversion (K7) and power table (K9)
+at 1 (K7's fixed work a block), 65,545 and 2^20 elements, and the prefix
+product (K8) at the prove's sizes, with the prove's sums, of the checkout at DIR (for
 paired runs against another commit unpacked with ``git archive``) on
 this checkout's inputs, timers and plain versions, one JSON line each,
 after a line of the local-memory instructions, the Keccak round loop and
@@ -94,6 +106,12 @@ FS_BODY_BYTES = 3 * 72
 FS_CASCADE_BODIES = tuple(FS_BODY_BYTES + 72 * r for r in range(8))
 # level widths the top kernel is timed at against the level launches it replaces
 TOP_SWEEP = tuple(1 << k for k in range(9, 14))
+# the leaves of the fib-2^16 prove's 11 Merkle trees: 3 commitments on the
+# 2^20-point FRI domain, then a tree a FRI round from 2^20 down to 2^13
+PROVE_TREES = (1 << 20,) * 4 + tuple(1 << k for k in range(19, 12, -1))
+# widths the subtrees kernel is timed at, from each down to TOP_WIDTH (512),
+# against the chain of level launches it replaces: the candidate splits
+SUBTREE_SWEEP = tuple(1 << k for k in range(10, 20))
 # the field vector kernels' sizes in the fib-2^16 prove: its n = 65,537 + 8
 # trace rows, n + 1 (q-factorials), 2n - 1 (the chirp convolution's table)
 # and the 2^20-point FRI domain (boundary quotients); each kernel's row of
@@ -102,6 +120,12 @@ TRACE_ROWS = 65537 + 8
 FIELD_SIZES = (TRACE_ROWS, TRACE_ROWS + 1, 2 * TRACE_ROWS - 1, 1 << 20)
 FIELD_MAIN = {"mont_inv": 1 << 20, "prefix_mul": 2 * TRACE_ROWS - 1, "geometric_table": 1 << 20,
               "mont_binary": 1 << 20}
+# K8's calls a fib-2^16 prove makes, by size: each of the two columns'
+# interpolations scans its n q-factorial terms and four chirp tables
+# (three of n, one of 2n - 1 elements; one of n + 1)
+PROVE_PREFIX_CALLS = {TRACE_ROWS: 8, TRACE_ROWS + 1: 2, 2 * TRACE_ROWS - 1: 2}
+# K8 is also checked (untimed) past the tiles the card holds at once
+PREFIX_LARGE = ((1 << 21) + 1, 1 << 23)
 # elements one K7 block inverts (csrc/fieldvec.cu kInvChunk); the field
 # kernels are also checked, untimed, on either side of one such block and
 # of the 2^20 domain, and K7 at zero patterns around its blocks
@@ -112,11 +136,12 @@ ZERO_SIZES = (INV_CHUNK + 1, (1 << 20) + 1)
 
 def field_operands(limbs, field, params, n: int, dev):
     """The field kernels' seeded operands at n, made with the given
-    modules of the port: a (zeros mixed in), b, and the power table's
-    start and bit bases (of a primitive 2^21-th root)."""
+    modules of the port: a (zeros mixed in), b (no zero), and the power
+    table's start and bit bases (of a primitive 2^21-th root)."""
     a = limbs.from_numpy(limbs.seeded_mont(max(n, 3), n)[:, :n], dev)
     a[:, 3::11] = 0
-    b = limbs.from_numpy(limbs.seeded_mont(max(n, 3), n + 1)[:, :n], dev)
+    # without seeded_mont's leading zero, so that b's prefix products are not all zero
+    b = limbs.from_numpy(limbs.seeded_mont(max(n + 1, 3), n + 1)[:, 1 : n + 1], dev)
     root = field.FieldElement.primitive_nth_root(1 << 21).value
     bases = limbs.mont_tensor([pow(root, 1 << k, params.P) for k in range((n - 1).bit_length())], dev)
     return a, b, limbs.mont_tensor([params.GENERATOR], dev), bases
@@ -134,6 +159,19 @@ def zero_patterns(a) -> dict:
         out["zero_block"] = a.clone()
         out["zero_block"][:, INV_CHUNK : 2 * INV_CHUNK] = 0
     return out
+
+
+def middle_levels(cuda_merkle, level):
+    """The levels from ``level`` down to 512 wide as ``cuda_merkle``'s tree
+    hashes them: the level kernel a level, where the module has the
+    subtrees kernel only while wider than its SUBTREE_WIDTH, then one
+    subtrees launch."""
+    split = getattr(cuda_merkle, "SUBTREE_WIDTH", 512)
+    while level.shape[1] > max(split, 512):
+        level = cuda_merkle.merkle_level(level)
+    if level.shape[1] > 512:
+        level = cuda_merkle.merkle_subtrees(level, (level.shape[1] // 512).bit_length() - 1)[-8 * 512 :].view(8, 512)
+    return level
 
 
 def say(phase: str, **fields) -> None:
@@ -210,7 +248,9 @@ def times_of(tree: str) -> int:
     from stark_tpu_torch.ops import sass
     from stark_tpu_torch.ops.cuda_field import geometric_table_plain
     from stark_tpu_torch.ops.device_fs import fs_round_plain
+    from stark_tpu_torch.ops.device_merkle import level_hash
     from stark_tpu_torch.ops.field_ops import mont_inv as mont_inv_plain
+    from stark_tpu_torch.ops.field_ops import prefix_mul as prefix_mul_plain
     from stark_tpu_torch.ops.limbs import seeded_mont
     from stark_tpu_torch.ops.timing import call_ms, device_ms
 
@@ -258,6 +298,26 @@ def times_of(tree: str) -> int:
             if not torch.equal(kernel(), plain()):
                 raise AssertionError(f"{name} of {tree} disagrees with the plain version at n = {n}")
         say("field_times", tree=tree, n=n, **{name: device_ms(kernel) for name, (kernel, _) in calls.items()})
+    # the middle levels of every tree of the prove, as DIR routes them, and
+    # K8 at the prove's sizes, each summed over the prove's calls
+    middle = {}
+    for w in sorted({min(n, 1 << 17) for n in PROVE_TREES}):
+        level = torch.from_numpy(seeded_mont(w, w).view(np.int32)).to(dev)
+        want = level
+        while want.shape[1] > 512:
+            want = level_hash(want)
+        if not torch.equal(middle_levels(cuda_merkle, level), want):
+            raise AssertionError(f"the middle levels of {tree} disagree with the plain chain at width {w}")
+        middle[w] = device_ms(lambda: middle_levels(cuda_merkle, level), 4)
+    prefix = {}
+    for n in PROVE_PREFIX_CALLS if cuda_field else ():
+        b = field_operands(this_limbs, field, params, n, dev)[1]
+        if not torch.equal(cuda_field.prefix_mul(b), prefix_mul_plain(b)):
+            raise AssertionError(f"prefix_mul of {tree} disagrees with the plain version at n = {n}")
+        prefix[n] = device_ms(lambda: cuda_field.prefix_mul(b))
+    say("middle_and_prefix_times", tree=tree, middle_levels_ms=middle,
+        middle_levels_prove_ms=sum(middle[min(n, 1 << 17)] for n in PROVE_TREES), prefix_mul_ms=prefix,
+        prefix_mul_prove_ms=sum(c * prefix[n] for n, c in PROVE_PREFIX_CALLS.items()) if prefix else None)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0
@@ -361,6 +421,12 @@ def main() -> int:
                 "fri_fold": sass.straight_line(sass.find(funcs, "fold_kernel")),
                 "keccak_round": round_loop.counts}
 
+    def subtree_bound(w: int, depth: int):
+        """The level in, each of its w - w / 2^depth parents out once; K5's
+        instructions a compress."""
+        parents = w - (w >> depth)
+        return bound(32 * w + 32 * parents, per_unit["merkle_level"] * (parents / 32))
+
     def bound_at(name: str, size: int):
         """(bound_ms, bound_by) of one call of a Merkle, fold, Fiat-Shamir
         or field kernel at its launch size (leaves, level width, codeword
@@ -370,6 +436,8 @@ def main() -> int:
             return bound(48 * size, per_unit[name] * (size / 32))
         if name == "merkle_level":  # two children in, one parent out
             return bound(48 * size, per_unit[name] * (size / 2 / 32))
+        if name == "merkle_subtrees":  # the prove's launches: down to TOP_WIDTH
+            return subtree_bound(size, (size // cuda_merkle.TOP_WIDTH).bit_length() - 1)
         if name == "merkle_top":  # the level in, every parent out, once each
             return bound(32 * size + 32 * (size - 1), per_unit[name] * ((size - 1) / 32))
         if name == "fri_fold":  # codeword, table, alpha in; half the codeword out
@@ -505,6 +573,47 @@ def main() -> int:
         ms={"kernel": report["merkle_top"][0], "plain": report["merkle_top"][1], "bound": report["merkle_top"][2],
             "bound_by": report["merkle_top"][3]})
 
+    # the subtrees kernel at every width from 2^10 to 2^19 down to 512 wide
+    # (every width and depth the prove runs among them), against its plain
+    # version and timed against the chain of level launches it replaces;
+    # the split of the prove's 11 trees at each candidate SUBTREE_WIDTH
+    sub_errs, sub_sweep = {}, {}
+    for w in SUBTREE_SWEEP:
+        level, depth = level_in[w], (w // cuda_merkle.TOP_WIDTH).bit_length() - 1
+        before = kernels.LAUNCHES["merkle_subtrees"]
+        sub_errs[w] = max_abs_err(torch, cuda_merkle.merkle_subtrees(level, depth), dm.merkle_subtrees_plain(level, depth))
+        if kernels.LAUNCHES["merkle_subtrees"] != before + 1:
+            raise AssertionError(f"merkle_subtrees at width {w} did not count one launch")
+        timed["merkle_subtrees", w] = device_ms(lambda: cuda_merkle.merkle_subtrees(level, depth))
+        sub_sweep[w] = {"depth": depth, "subtrees": timed["merkle_subtrees", w],
+                        "level_chain": sum(timed["merkle_level", v] for v in level_in if 512 < v <= w),
+                        "bound": subtree_bound(w, depth)[0]}
+    if any(sub_errs.values()):
+        raise AssertionError(f"the subtrees kernel disagrees with its plain version: {sub_errs}")
+
+    def tree_middle_ms(n: int, split: int) -> float:
+        """Levels of an n-leaf tree from n down to 512 wide, the level
+        kernel above ``split`` and the subtrees kernel from there."""
+        top = min(n, split)
+        return (sum(timed["merkle_level", v] for v in level_in if top < v <= n)
+                + (timed["merkle_subtrees", top] if top > cuda_merkle.TOP_WIDTH else 0.0))
+
+    split_sub = {w: sum(tree_middle_ms(n, w) for n in PROVE_TREES) for w in (512,) + SUBTREE_SWEEP}
+    cheapest_sub = min(split_sub, key=split_sub.get)
+    sub_width = cuda_merkle.SUBTREE_WIDTH
+    if sub_width not in SUBTREE_SWEEP:
+        raise AssertionError(f"SUBTREE_WIDTH {sub_width} is outside the timed widths {SUBTREE_SWEEP}")
+    say("merkle_subtrees", max_abs_err=sub_errs, subtree_width=sub_width, sweep=sub_sweep,
+        prove_split_ms=split_sub, cheapest_split=cheapest_sub)
+    if split_sub[sub_width] > 1.05 * split_sub[cheapest_sub]:
+        raise AssertionError(f"SUBTREE_WIDTH {sub_width} takes {split_sub[sub_width]:.4f} ms a prove, more than 5 % "
+                             f"above the cheapest split {cheapest_sub} ({split_sub[cheapest_sub]:.4f} ms)")
+    sub_depth = (sub_width // cuda_merkle.TOP_WIDTH).bit_length() - 1
+    report["merkle_subtrees"] = (timed["merkle_subtrees", sub_width],
+                                 call_ms(lambda: dm.merkle_subtrees_plain(level_in[sub_width], sub_depth)),
+                                 *bound_at("merkle_subtrees", sub_width))
+    errs["merkle_subtrees"] = 0
+
     n_tree = 1 << 13
     tree_vals = seeded_values(n_tree)
     tree = dm.DeviceMerkleTree(fo.to_mont(from_numpy(pack(tree_vals), dev)))
@@ -589,11 +698,28 @@ def main() -> int:
                                                          lambda op=op, x=x, y=y: cuda_field._PLAIN[op](x, y))
         return calls
 
+    def prefix_err(b) -> int:
+        """K8 against its plain version on b, in one launch."""
+        before = kernels.LAUNCHES["prefix_mul"]
+        got = cuda_field.prefix_mul(b)
+        if kernels.LAUNCHES["prefix_mul"] != before + 1:
+            raise AssertionError(f"prefix_mul at n = {b.shape[1]} did not launch once")
+        want = fo.prefix_mul(b)
+        if not bool((want != 0).any(0).all()):
+            raise AssertionError(f"prefix_mul's check input at n = {b.shape[1]} has a zero prefix")
+        return max_abs_err(torch, got, want)
+
     field_errs = {}
+    for n in PREFIX_LARGE:  # K8 alone past the tiles the card holds at once, untimed
+        field_errs[n] = {"prefix_mul": prefix_err(field_operands(limbs, field, params, n, dev)[1])}
+        if field_errs[n]["prefix_mul"]:
+            raise AssertionError(f"prefix_mul disagrees with its plain version at n = {n}")
     # the prove's sizes last: the operands still alive while phase 4 proves are 2^20's
     for n in FIELD_EDGES + FIELD_SIZES:
         calls = field_calls(n)
-        field_errs[n] = {name: max_abs_err(torch, kernel(), plain()) for name, (kernel, plain) in calls.items()}
+        field_errs[n] = {name: max_abs_err(torch, kernel(), plain()) for name, (kernel, plain) in calls.items()
+                         if name != "prefix_mul"}
+        field_errs[n]["prefix_mul"] = prefix_err(field_operands(limbs, field, params, n, dev)[1])
         if any(field_errs[n].values()):
             raise AssertionError(f"field kernels disagree with their plain versions at n = {n}: {field_errs[n]}")
         if n not in FIELD_SIZES:
@@ -621,13 +747,14 @@ def main() -> int:
     # bases, then step through the rest of their elements
     step_bits = cuda_field.geometric_step_bits(1 << 20)
     steps = -(-(1 << 20) // (1 << step_bits))
-    say("field_kernels", sizes=list(FIELD_SIZES), edge_sizes=list(FIELD_EDGES), max_abs_err=field_errs,
+    say("field_kernels", sizes=list(FIELD_SIZES), edge_sizes=list(FIELD_EDGES), prefix_sizes=list(PREFIX_LARGE),
+        max_abs_err=field_errs,
         k7_zero_patterns=zero_errs, k7_one_block_ms=inv_block, k9_split_2e20={"m": step_bits, "per_thread": steps},
         warp_instructions_per_product=product._asdict(),
         warp_instructions_per_thread={k: per_thread(k, *i)._asdict() for k, i in (
             # K7: warp 0 of a block, which runs the chain's 23 windows; K9: a
             # thread's bit base loaded, at most m bits, then its steps
-            ("inv_kernel", (23,)), ("scan_block_kernel", (8,)), ("scan_offsets_kernel", ()),
+            ("inv_kernel", (23,)),
             ("geometric_kernel", (1, step_bits, steps - 1)),
             ("binary_kernelILi0E", ()), ("binary_kernelILi1E", ()), ("binary_kernelILi2E", ()))},
         ms={f"{name} @ {n}": timed[name, n] for name in FIELD_MAIN for n in FIELD_SIZES},
@@ -689,6 +816,20 @@ def main() -> int:
     unchecked = sorted(set(ntt_launches) - set(ntt_sizes))
     if unchecked:
         raise AssertionError(f"the 2^16-step prove ran NTT passes at sizes phase 2 did not check: {unchecked}")
+    # the trees' routing: the level kernel only above SUBTREE_WIDTH, one
+    # subtrees launch a tree at min(n, SUBTREE_WIDTH); K8 once a call
+    want_level = {}
+    for n in PROVE_TREES:
+        for w in (v for v in level_in if sub_width < v <= n):
+            want_level[w] = want_level.get(w, 0) + 1
+    want_sub = {}
+    for n in PROVE_TREES:
+        want_sub[min(n, sub_width)] = want_sub.get(min(n, sub_width), 0) + 1
+    routing = {"merkle_level": want_level, "merkle_subtrees": want_sub, "prefix_mul": PROVE_PREFIX_CALLS}
+    for name, want in routing.items():
+        got = {size: v[name] for size, v in by_size.items() if name in v}
+        if got != want:
+            raise AssertionError(f"the 2^16-step prove launched {name} {got} by size, expected {want}")
     verifier = FibonacciStark(steps, device=None)  # the port's host verifier
     t0 = time.perf_counter()
     ok = verifier.verify(a, b, result, proof)
@@ -734,6 +875,9 @@ def main() -> int:
         if name in ("merkle_level", "merkle_top"):
             x = leaves[:, :size].contiguous()
             return lambda: getattr(cuda_merkle, name)(x)
+        if name == "merkle_subtrees":  # down to TOP_WIDTH, as a tree runs it
+            x = leaves[:, :size].contiguous()
+            return lambda: cuda_merkle.merkle_subtrees(x, (size // cuda_merkle.TOP_WIDTH).bit_length() - 1)
         if name == "fri_fold":
             x, t = cw[:, :size].contiguous(), table[:, : size // 2].contiguous()
             return lambda: cuda_fold.fri_fold(x, alpha, t)
@@ -750,16 +894,25 @@ def main() -> int:
         for name, count in counts.items():
             if (name, size) not in timed:
                 timed[name, size] = device_ms(launch_at(name, size))
-            calls = count // cuda_field.prefix_launches(size) if name == "prefix_mul" else count
-            prove_ms[name] += calls * timed[name, size]
-            prove_bound_ms[name] += calls * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
+            prove_ms[name] += count * timed[name, size]
+            prove_bound_ms[name] += count * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
                                              else bound_at(name, size)[0])
     if any(sum(v.get(name, 0) for v in by_size.values()) != launches[name] for name in launches):
         raise AssertionError(f"launches by size do not add up to the launch counts: {by_size} vs {launches}")
     # the levels the top kernel hashes, as the chain of level launches it replaces
     small_levels_before = sum(v["merkle_top"] * top_sweep[size]["level_chain"]
                               for size, v in by_size.items() if "merkle_top" in v)
-    say("prove_kernels", prove_ms=prove_ms, prove_bound_ms=prove_bound_ms,
+    # K5 split into the wide levels (inputs above SUBTREE_WIDTH) and the
+    # middle ones, which the subtrees kernel hashes; those as the chain of
+    # level launches they replace (phase 2's times)
+    k5_sizes = {size: v["merkle_level"] for size, v in by_size.items() if "merkle_level" in v}
+    k5_split = {part: {"launches": sum(c for size, c in k5_sizes.items() if keep(size)),
+                       "ms": sum(c * timed["merkle_level", size] for size, c in k5_sizes.items() if keep(size))}
+                for part, keep in (("wide", lambda w: w > sub_width), ("middle", lambda w: w <= sub_width))}
+    middle_before = sum(sub_sweep[size]["level_chain"] * v["merkle_subtrees"]
+                        for size, v in by_size.items() if "merkle_subtrees" in v)
+    say("prove_kernels", prove_ms=prove_ms, prove_bound_ms=prove_bound_ms, merkle_level_split=k5_split,
+        middle_levels_ms={"level_launches": middle_before, "merkle_subtrees": prove_ms["merkle_subtrees"]},
         small_levels_ms={"level_launches": small_levels_before, "merkle_top": prove_ms["merkle_top"]},
         by_size=[{"size": size, **{k: {"launches": c, "ms": timed[k, size]} for k, c in v.items()}}
                  for size, v in by_size.items()])
@@ -774,6 +927,7 @@ def main() -> int:
         "ntt_pass2": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:311"),
         "merkle_leaves": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:156"),
         "merkle_level": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:185"),
+        "merkle_subtrees": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:237"),
         "merkle_top": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/pallas_merkle.py:215"),
         "fri_fold": ("stark_tpu_torch/csrc/fold.cu", "stark_tpu/ops/pallas_fold.py:145"),
         "fs_round": ("stark_tpu_torch/csrc/fs.cu", "stark_tpu/ops/device_keccak.py:132"),

@@ -32,8 +32,10 @@
 //       (131 squarings, 31 multiplies) a warp, the 8 of a block side by
 //       side, then each run swept backwards; ~4 products an element and
 //       no global scratch.  A block waits one chain's latency.
-//   K8  a block-local scan, and past one block a scan of the block totals
-//       and an offsets launch (2-3 products an element, 3 launches).
+//   K8  one launch: a tile of kScanChunk elements a block, scanned in
+//       registers and by warp shuffles, the tiles chained by a decoupled
+//       look-back over a status buffer the caller keeps (~2 products an
+//       element, no pass over the output again).
 //   K9  a thread raises the base to its first index by the bit bases,
 //       then steps by base^T, T the threads of the grid: ~2 products an
 //       element at 2^20, stores coalesced.
@@ -51,8 +53,9 @@ using stark::Fe;
 using stark::fe_mul;
 
 constexpr int kThreads = 256;
-constexpr int kScanItems = 8;                      // consecutive elements a thread scans
-constexpr int kScanChunk = kThreads * kScanItems;  // elements a scan block covers
+constexpr int kScanItems = 4;                      // consecutive elements a thread scans
+constexpr int kScanChunk = kThreads * kScanItems;  // elements a scan tile holds
+constexpr int kLookItems = 4;                      // tiles a lane checks in one look-back window
 constexpr int kMaxBits = 64;                       // bit bases K9 takes
 
 enum Op { kMul = 0, kAdd = 1, kSub = 2 };
@@ -198,82 +201,199 @@ __global__ void __launch_bounds__(kThreads, kInvBlocksPerSM)
 }
 
 // ---------------------------------------------------------------------------
-// K8: inclusive prefix product.  A block covers kScanChunk elements, read
-// coalesced into shared memory; each thread multiplies out its run of
-// kScanItems consecutive elements, the block scans the runs' totals
-// (Hillis-Steele over kThreads values in shared memory), and each thread
-// multiplies its run by the product of the runs before it.  The block's
-// total goes to `totals`; the host side scans the totals the same way and
-// multiplies each later block by the product of the blocks before it.
+// K8: inclusive prefix product in one launch, by decoupled look-back
+// (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", the design of CUB's single-pass scan).  A block takes the
+// tile of kScanChunk elements its ticket names (an atomic counter, so a
+// block only ever waits on tiles that blocks already running hold),
+// reads it coalesced into shared memory (past n: one), and scans it: a
+// thread multiplies out its run of kScanItems consecutive elements in
+// registers, each warp scans its 32 run totals with shuffles, warp 0 the
+// 8 warp totals.  Thread 0 publishes the tile's aggregate (state A); warp
+// 0 then looks back over the statuses of the 32 * kLookItems tiles before
+// it at a time (kLookItems consecutive tiles a lane), waits while any has
+// published nothing, multiplies the aggregates back to the nearest tile
+// that has published its inclusive prefix (state P) and that prefix,
+// window after window until it meets a P, and publishes the tile's own
+// inclusive prefix.  Each thread multiplies its
+// run by the tile's exclusive prefix times its own in the tile, and the
+// tile is stored coalesced through shared memory.  Tile 0 publishes P at
+// once.
+//
+// A status is a flag word (epoch << 2 | state) and an aggregate and an
+// inclusive prefix in separate arrays.  The writer stores the value, then
+// the flag with st.release.gpu; the reader loads the flag with
+// ld.acquire.gpu, then the value through L2 (__ldcg): L1 is not coherent,
+// and the buffer is reused across calls, so an SM may hold a line of an
+// earlier call.
+//
+// Bound: bytes (32 in and 32 out an element).  What holds it back at the
+// prove's sizes is latency: a tile's chain of dependent products (its run,
+// the warp and block scans, the look-back's reduction, the run's update)
+// and the look-back's round trips through L2.  Runs of 4 and windows of
+// 4 tiles a lane keep both short: at 2^17 elements every tile finds tile
+// 0's P in its first window.  The caller keeps one
+// zeroed status buffer a device and passes a new epoch each call, so a
+// flag of an earlier call reads as "nothing published" and no launch
+// resets the buffer, and the ticket count at the call's start (`base`).
+// So two streams must not run this on one device at once.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) scan_block_kernel(const int32_t* in, int32_t* out, int64_t n,
-                                                              int32_t* totals, int64_t blocks) {
+enum TileState : uint32_t { kNothing = 0, kAggregate = 1, kPrefix = 2 };
+
+__device__ __forceinline__ void store_cg(Fe* p, const Fe& v) {
+    __stcg(reinterpret_cast<uint4*>(p), make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]));
+}
+
+__device__ __forceinline__ Fe load_cg(const Fe* p) {
+    const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
+    return Fe{{v.x, v.y, v.z, v.w}};
+}
+
+__device__ __forceinline__ void store_release(uint32_t* p, uint32_t v) {
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
+    uint32_t v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// Store v, then the flag that makes it visible.
+__device__ __forceinline__ void publish(uint32_t* flag, Fe* slot, const Fe& v, uint32_t word) {
+    store_cg(slot, v);
+    store_release(flag, word);
+}
+
+__device__ __forceinline__ Fe shfl_idx(const Fe& a, int src) {
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.w[k] = __shfl_sync(kAll, a.w[k], src);
+    return r;
+}
+
+__device__ __forceinline__ Fe shfl_xor(const Fe& a, int d) {
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.w[k] = __shfl_xor_sync(kAll, a.w[k], d);
+    return r;
+}
+
+__global__ void __launch_bounds__(kThreads) scan_kernel(const int32_t* in, int32_t* out, int64_t n,
+                                                        unsigned long long* ticket, uint32_t* flags, Fe* aggregates,
+                                                        Fe* inclusives, uint32_t epoch, unsigned long long base) {
     __shared__ Fe items[kScanChunk];
-    __shared__ Fe sums[2][kThreads];
-    const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanChunk;
+    __shared__ Fe warp_before[kWarps];  // the product of the tile's warps before each
+    __shared__ Fe tile_before;          // the product of the tiles before this one
+    __shared__ int64_t tile_index;
     const int t = threadIdx.x;
+    const int lane = t % 32;
+    const int warp = t / 32;
+    const Fe one = mont_one();
+    if (t == 0) tile_index = static_cast<int64_t>(atomicAdd(ticket, 1ull) - base);
+    __syncthreads();
+    const int64_t tile = tile_index;
+    const int64_t start = tile * kScanChunk;
 #pragma unroll
     for (int k = 0; k < kScanItems; ++k) {
-        const int64_t i = base + k * kThreads + t;
-        items[k * kThreads + t] = i < n ? stark::fe_load(in, n, i) : mont_one();
+        const int64_t i = start + k * kThreads + t;
+        items[k * kThreads + t] = i < n ? stark::fe_load(in, n, i) : one;
     }
     __syncthreads();
+    Fe* const mine = items + t * kScanItems;
     Fe run[kScanItems];
-    run[0] = items[t * kScanItems];
+    run[0] = mine[0];
 #pragma unroll
-    for (int k = 1; k < kScanItems; ++k) run[k] = fe_mul(run[k - 1], items[t * kScanItems + k]);
-    int cur = 0;
-    sums[0][t] = run[kScanItems - 1];
+    for (int k = 1; k < kScanItems; ++k) run[k] = fe_mul(run[k - 1], mine[k]);
+    // inclusive scan of the warp's run totals; e: the runs before this one
+    Fe incl = run[kScanItems - 1];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const Fe b = shfl_up(incl, d);
+        if (lane >= d) incl = fe_mul(b, incl);
+    }
+    const Fe e = shfl_up(incl, 1);
+    if (lane == 31) warp_before[warp] = incl;
     __syncthreads();
-#pragma unroll 1
-    for (int d = 1; d < kThreads; d <<= 1) {  // log2(kThreads) rounds
-        Fe v = sums[cur][t];
-        if (t >= d) v = fe_mul(sums[cur][t - d], v);
-        sums[cur ^ 1][t] = v;
-        cur ^= 1;
-        __syncthreads();
-    }
-    if (t > 0) {
-        const Fe before = sums[cur][t - 1];
+    if (warp == 0) {
+        // the 8 warp totals, scanned; lane 7 holds the tile's aggregate
+        Fe w = lane < kWarps ? warp_before[lane] : one;
 #pragma unroll
-        for (int k = 0; k < kScanItems; ++k) run[k] = fe_mul(before, run[k]);
-    }
+        for (int d = 1; d < kWarps; d <<= 1) {
+            const Fe b = shfl_up(w, d);
+            if (lane >= d) w = fe_mul(b, w);
+        }
+        const Fe before = shfl_up(w, 1);
+        if (lane < kWarps) warp_before[lane] = lane > 0 ? before : one;
+        const Fe aggregate = shfl_idx(w, kWarps - 1);
+        if (lane == 0) {  // tile 0's aggregate is its inclusive prefix
+            publish(flags + tile, (tile == 0 ? inclusives : aggregates) + tile, aggregate,
+                    epoch << 2 | (tile == 0 ? kPrefix : kAggregate));
+        }
+        Fe exclusive = one;
+        // a window: the tiles last - d, d = lane * kLookItems + k, k < kLookItems
+        for (int64_t last = tile - 1; last >= 0; last -= 32 * kLookItems) {
+            const int64_t first = last - lane * kLookItems;
+            uint32_t state[kLookItems];
+            bool waiting;
+            do {
+                waiting = false;
 #pragma unroll
-    for (int k = 0; k < kScanItems; ++k) items[t * kScanItems + k] = run[k];
+                for (int k = 0; k < kLookItems; ++k) {
+                    state[k] = kPrefix;  // before tile 0: nothing to wait for (tile 0's P stops the look-back first)
+                    if (first - k >= 0) {
+                        const uint32_t f = load_acquire(flags + first - k);
+                        state[k] = (f >> 2) == epoch ? (f & 3u) : static_cast<uint32_t>(kNothing);
+                    }
+                    waiting |= state[k] == kNothing;
+                }
+            } while (__any_sync(kAll, waiting));
+            int nearest = kLookItems;  // this lane's nearest P
+#pragma unroll
+            for (int k = kLookItems - 1; k >= 0; --k) {
+                if (state[k] == kPrefix) nearest = k;
+            }
+            const unsigned prefixes = __ballot_sync(kAll, nearest < kLookItems);
+            const int stop = prefixes ? __ffs(prefixes) - 1 : 31;  // lanes 0 .. stop take part, lane stop to its P
+            Fe x[kLookItems];  // the lane's tiles that take part, as a product tree
+#pragma unroll
+            for (int k = 0; k < kLookItems; ++k) {
+                const int64_t j = first - k;
+                const bool part = j >= 0 && (lane < stop || (lane == stop && k <= nearest));
+                x[k] = part ? load_cg(state[k] == kPrefix ? inclusives + j : aggregates + j) : one;
+            }
+#pragma unroll
+            for (int h = 1; h < kLookItems; h <<= 1) {
+#pragma unroll
+                for (int k = 0; k + h < kLookItems; k += 2 * h) x[k] = fe_mul(x[k], x[k + h]);
+            }
+            Fe v = x[0];
+            if (stop == 0) {  // the P is among lane 0's tiles: no other lane takes part
+                v = shfl_idx(v, 0);
+            } else {
+#pragma unroll
+                for (int d = 16; d > 0; d >>= 1) v = fe_mul(v, shfl_xor(v, d));
+            }
+            exclusive = last == tile - 1 ? v : fe_mul(exclusive, v);
+            if (prefixes) break;
+        }
+        if (lane == 0) {
+            if (tile > 0) publish(flags + tile, inclusives + tile, fe_mul(exclusive, aggregate), epoch << 2 | kPrefix);
+            tile_before = exclusive;
+        }
+    }
+    __syncthreads();
+    Fe before = fe_mul(tile_before, warp_before[warp]);
+    if (lane > 0) before = fe_mul(before, e);
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) mine[k] = fe_mul(before, run[k]);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kScanItems; ++k) {
-        const int64_t i = base + k * kThreads + t;
+        const int64_t i = start + k * kThreads + t;
         if (i < n) stark::fe_store(out, n, i, items[k * kThreads + t]);
     }
-    if (totals != nullptr && t == kThreads - 1) stark::fe_store(totals, blocks, blockIdx.x, sums[cur][kThreads - 1]);
-}
-
-// out[i] *= (scanned) totals[block of i - 1], for every i past the first block.
-__global__ void scan_offsets_kernel(int32_t* __restrict__ out, int64_t n, const int32_t* __restrict__ totals,
-                                    int64_t blocks) {
-    const int64_t i = kScanChunk + global_index();
-    if (i >= n) return;
-    const Fe before = stark::fe_load(totals, blocks, i / kScanChunk - 1);
-    stark::fe_store(out, n, i, fe_mul(before, stark::fe_load(out, n, i)));
-}
-
-// The scan of n elements: one block launch, and where it took more than one
-// block, the scan of its block totals (in place, in `scratch`, whose next
-// levels follow) and the offsets launch.
-cudaError_t scan(const int32_t* in, int32_t* out, int64_t n, int32_t* scratch, cudaStream_t stream) {
-    const int64_t blocks = (n + kScanChunk - 1) / kScanChunk;
-    scan_block_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(in, out, n,
-                                                                             blocks > 1 ? scratch : nullptr, blocks);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || blocks == 1) return err;
-    err = scan(scratch, scratch, blocks, scratch + 8 * blocks, stream);
-    if (err != cudaSuccess) return err;
-    const int64_t rest = n - kScanChunk;
-    scan_offsets_kernel<<<static_cast<unsigned>((rest + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-        out, n, scratch, blocks);
-    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -351,26 +471,19 @@ extern "C" int stark_mont_inv(const int32_t* a, int32_t* out, int64_t n, void* s
     return cudaGetLastError();
 }
 
-// a, out: (8, n) (out may be a); scratch: 8 * stark_prefix_scratch(n) words.
-extern "C" int stark_prefix_mul(const int32_t* a, int32_t* out, int64_t n, int32_t* scratch, void* stream) {
-    if (n <= 0 || (n > kScanChunk && scratch == nullptr)) return cudaErrorInvalidValue;
-    return scan(a, out, n, scratch, static_cast<cudaStream_t>(stream));
-}
-
-// Kernels one stark_prefix_mul call at n launches: the block scan, and past
-// one block the scan of the block totals and the offsets launch.
-extern "C" int stark_prefix_launches(int64_t n) {
-    return n <= kScanChunk ? 1 : stark_prefix_launches((n + kScanChunk - 1) / kScanChunk) + 2;
-}
-
-// Columns of block totals the scan of n elements keeps in its scratch.
-extern "C" int64_t stark_prefix_scratch(int64_t n) {
-    int64_t total = 0;
-    while (n > kScanChunk) {
-        n = (n + kScanChunk - 1) / kScanChunk;
-        total += n;
-    }
-    return total;
+// a, out: (8, n) (out may be a).  The status buffer of `capacity` tiles:
+// ticket (one counter), flags (capacity words), aggregates and inclusives
+// (capacity elements each, 16-byte aligned), zeroed when allocated; epoch
+// in [1, 2^30), new each call; base: the ticket's count before this call.
+extern "C" int stark_prefix_mul(const int32_t* a, int32_t* out, int64_t n, void* ticket, void* flags,
+                                void* aggregates, void* inclusives, int64_t capacity, uint32_t epoch,
+                                unsigned long long base, void* stream) {
+    const int64_t tiles = (n + kScanChunk - 1) / kScanChunk;
+    if (n <= 0 || tiles > capacity || epoch == 0 || epoch >= (1u << 30)) return cudaErrorInvalidValue;
+    scan_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        a, out, n, static_cast<unsigned long long*>(ticket), static_cast<uint32_t*>(flags),
+        static_cast<Fe*>(aggregates), static_cast<Fe*>(inclusives), epoch, base);
+    return cudaGetLastError();
 }
 
 // start: (8, 1); bases: (8, bits), bits <= 64 and 2^bits >= n; out: (8, n).

@@ -21,6 +21,21 @@
 // root in one launch: one block, each level built from the previous one in
 // shared memory, a barrier between levels.
 //
+// The middle levels, from a few hundred thousand parents down to 512, are
+// neither: a level of a few thousand parents is a few microseconds of ALU
+// work, less than its launch and round trip.  The subtrees kernel replaces
+// the chain of level_hash_pallas calls in tree_levels
+// (stark_tpu/ops/pallas_merkle.py:215-240) for those levels: one launch
+// hashes `depth` levels, a block taking one or more whole subtrees of
+// 2^depth children, level 1 from global memory and each later level from
+// the previous one in shared memory, every level also stored to its slab
+// of one flat output.  Its bound is the ALU work of its compressions (K5's
+// SASS a compress); what it saves is depth - 1 launches and global round
+// trips, and what it pays is a block's chain of depth compressions, one
+// compress's latency a level.  No more blocks than SMs: each SM then
+// hashes its share of every level in one block.  The top kernel is the
+// one-block, one-subtree case of the same level loop (hash_levels).
+//
 // Layouts are the JAX package's: digits (4, n) and digest words (8, w),
 // u32 bits held in int32 tensors.  The level kernel reads its children
 // (2i, 2i + 1) itself; the even/odd split of the TPU version was a Mosaic
@@ -38,7 +53,13 @@ constexpr int kTopThreads = 1024;
 // digests of 32 bytes) then fill 192 KB of the SM's 227 KB
 constexpr int64_t kTopMaxWidth = 8192;
 
+// shared memory of a block hashing the levels above w children: its two
+// buffers of w/2 and w/4 digests of 32 bytes
 constexpr size_t top_smem_bytes(int64_t w) { return static_cast<size_t>(24 * w); }
+// the subtrees kernel: threads a block at most, and the fewest children a
+// block takes (kSubChunk / 2 threads hash one parent each at level 1)
+constexpr int kSubThreads = 256;
+constexpr int64_t kSubChunk = 256;
 
 constexpr uint64_t kIV0 = 0x6A09E667F3BCC908ull, kIV1 = 0xBB67AE8584CAA73Bull;
 constexpr uint64_t kIV2 = 0x3C6EF372FE94F82Bull, kIV3 = 0xA54FF53A5F1D36F1ull;
@@ -147,33 +168,55 @@ __device__ __forceinline__ void hash_parent(const uint32_t* src, int64_t w, int6
     blake2b256_block(m, 64, h);
 }
 
-// Every level of the (8, w) subtree in one block, w a power of two: level
-// k (w / 2^k parents) is written to out as a contiguous (8, w / 2^k) slab
-// after the slabs of the levels below it, and to one of two shared
-// buffers, from which the next level reads it after a barrier.  A thread
-// hashes parents t, t + blockDim.x, ...
-__global__ void __launch_bounds__(kTopThreads) top_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                                                          int64_t w) {
-    extern __shared__ uint2 top_shared[];  // uint2: the 8-byte alignment of the paired loads
-    uint32_t* const even = reinterpret_cast<uint32_t*>(top_shared);  // levels 1, 3, 5, ...: (8, w/2) at most
-    uint32_t* const odd = even + 8 * (w / 2);                         // levels 2, 4, ...: (8, w/4) at most
-    const uint32_t* src = in;
+// Levels 1 .. depth above the block's `chunk` children, which start at
+// column `first` of the (8, w) level `in` (global memory): level k (chunk /
+// 2^k parents) goes to columns first / 2^k .. of its (8, w / 2^k) slab of
+// `out`, the slabs of levels 1, 2, ... laid end to end, and to one of two
+// shared buffers (even: chunk / 2 digests, odd: chunk / 4), from which the
+// next level reads it after a barrier.  A thread hashes parents t,
+// t + blockDim.x, ...; every thread of the block must call this.
+__device__ __forceinline__ void hash_levels(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int64_t w,
+                                            int64_t first, int64_t chunk, int depth, uint32_t* even, uint32_t* odd) {
+    const uint32_t* src = in + first;
+    int64_t plane = w;  // row stride of src
     uint32_t* dst = even;
 #pragma unroll 1
-    for (int64_t width = w; width > 1; width /= 2) {
-        const int64_t half = width / 2;
+    for (int k = 1; k <= depth; ++k) {
+        const int64_t half = chunk >> k;
+        const int64_t slab_w = w >> k;
+        uint32_t* const slab = out + (first >> k);
 #pragma unroll 1
         for (int64_t i = threadIdx.x; i < half; i += blockDim.x) {
             uint64_t h[4];
-            hash_parent(src, width, i, h);
+            hash_parent(src, plane, i, h);
             store_digest(dst, half, i, h);
-            store_digest(out, half, i, h);
+            store_digest(slab, slab_w, i, h);
         }
         __syncthreads();
-        out += 8 * half;
+        out += 8 * slab_w;
         src = dst;
+        plane = half;
         dst = dst == even ? odd : even;
     }
+}
+
+// Every level of the (8, w) subtree in one block, w a power of two, down
+// to the root.
+__global__ void __launch_bounds__(kTopThreads) top_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                                                          int64_t w) {
+    extern __shared__ uint2 top_shared[];  // uint2: the 8-byte alignment of the paired loads
+    uint32_t* const even = reinterpret_cast<uint32_t*>(top_shared);
+    hash_levels(in, out, w, 0, w, __ffsll(w) - 1, even, even + 8 * (w / 2));
+}
+
+// `depth` levels above the (8, w) level, a block a chunk of `chunk`
+// consecutive children (whole subtrees of 2^depth).
+__global__ void __launch_bounds__(kSubThreads) subtrees_kernel(const uint32_t* __restrict__ in,
+                                                               uint32_t* __restrict__ out, int64_t w, int64_t chunk,
+                                                               int depth) {
+    extern __shared__ uint2 sub_shared[];
+    uint32_t* const even = reinterpret_cast<uint32_t*>(sub_shared);
+    hash_levels(in, out, w, static_cast<int64_t>(blockIdx.x) * chunk, chunk, depth, even, even + 8 * (chunk / 2));
 }
 
 }  // namespace
@@ -207,5 +250,30 @@ extern "C" int stark_merkle_top(const int32_t* level, int32_t* out, int64_t w, v
     const int threads = static_cast<int>(w / 2 < 32 ? 32 : w / 2 > kTopThreads ? kTopThreads : w / 2);
     top_kernel<<<1, threads, top_smem_bytes(w), static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const uint32_t*>(level), reinterpret_cast<uint32_t*>(out), w);
+    return cudaGetLastError();
+}
+
+// level: (8, w) with w a power of two; 1 <= depth, 2^depth <= min(w, 8192);
+// out: 8 * (w - w / 2^depth) words, the (8, w / 2^k) slabs of levels
+// k = 1 .. depth.
+extern "C" int stark_merkle_subtrees(const int32_t* level, int32_t* out, int64_t w, int depth, void* stream) {
+    if (w < 2 || (w & (w - 1)) || depth < 1 || depth > 13 || (int64_t{1} << depth) > w ||
+        (int64_t{1} << depth) > kTopMaxWidth)
+        return cudaErrorInvalidValue;
+    // a block a chunk of whole subtrees, at least kSubChunk children, and
+    // no more blocks than SMs where the shared memory allows
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    int64_t chunk = int64_t{1} << depth;
+    while (chunk < w && chunk < kTopMaxWidth && (chunk < kSubChunk || w / chunk > sms)) chunk *= 2;
+    err = cudaFuncSetAttribute(subtrees_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(top_smem_bytes(kTopMaxWidth)));
+    if (err != cudaSuccess) return err;
+    const int threads = static_cast<int>(chunk / 2 < 32 ? 32 : chunk / 2 > kSubThreads ? kSubThreads : chunk / 2);
+    subtrees_kernel<<<static_cast<unsigned>(w / chunk), threads, top_smem_bytes(chunk),
+                      static_cast<cudaStream_t>(stream)>>>(reinterpret_cast<const uint32_t*>(level),
+                                                           reinterpret_cast<uint32_t*>(out), w, chunk, depth);
     return cudaGetLastError();
 }

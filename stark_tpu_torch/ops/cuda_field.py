@@ -8,7 +8,7 @@ boundary quotients:
   Montgomery's batch inversion inside each block of 2048 elements (one
   Fermat chain a warp's total), in one launch;
 * :func:`prefix_mul` (K8, ``stark_prefix_mul``): inclusive prefix product
-  along the columns;
+  along the columns, in one launch by a decoupled look-back;
 * :func:`geometric_table` (K9, ``stark_geometric_table``): start * base^i,
   each of 2^m threads raising the base to its first index by the bit
   bases and stepping by base^(2^m) (:func:`geometric_step_bits`);
@@ -26,6 +26,8 @@ limb for limb.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -116,25 +118,83 @@ def mont_inv(a: torch.Tensor) -> torch.Tensor:
 # -- K8 -----------------------------------------------------------------------
 
 
-def prefix_launches(n: int) -> int:
-    """Kernel launches of one :func:`prefix_mul` of n elements on the card."""
-    return kernels.library().stark_prefix_launches(n)
+#: elements a K8 tile holds (csrc/fieldvec.cu kScanChunk)
+PREFIX_TILE = 1024
+#: calls a status buffer serves before it is zeroed again: a flag word is
+#: epoch << 2 | state in 32 bits
+EPOCHS = 1 << 30
+
+
+class ScanStatus:
+    """The look-back status buffer K8 keeps on one device: a tile ticket
+    counter, a flag word a tile, and an aggregate and an inclusive prefix a
+    tile (``values[0]``, ``values[1]``), zeroed when allocated.  Each call
+    takes a new epoch, so the flags of earlier calls read as "nothing
+    published" and no launch resets the buffer, and the ticket's count at
+    its start (``base``): calls run in order on the current stream, so each
+    call's tiles take the tickets base .. base + tiles - 1."""
+
+    def __init__(self, tiles: int, device) -> None:
+        self.capacity = 1 << (tiles - 1).bit_length()
+        self.ticket = torch.zeros(1, dtype=torch.int64, device=device)
+        self.flags = torch.zeros(self.capacity, dtype=torch.int32, device=device)
+        self.values = torch.zeros((2, self.capacity, 4), dtype=torch.int32, device=device)
+        self.epoch = 0
+        self.base = 0
+
+    def claim(self, tiles: int):
+        """(epoch, base) of the next call, of ``tiles`` tiles; past the
+        last epoch the buffer is zeroed (queued on the current stream)."""
+        if tiles > self.capacity:
+            raise ValueError(f"{tiles} tiles exceed the status buffer's {self.capacity}")
+        if self.epoch + 1 >= EPOCHS:
+            self.ticket.zero_()
+            self.flags.zero_()
+            self.epoch = self.base = 0
+        self.epoch += 1
+        base = self.base
+        self.base += tiles
+        return self.epoch, base
+
+
+#: device -> its K8 status buffer
+_STATUS: Dict[torch.device, ScanStatus] = {}
+
+
+def scan_status(tiles: int, device: torch.device) -> ScanStatus:
+    """The device's status buffer, allocated (zeroed) or grown to hold
+    ``tiles`` tiles.  A buffer dropped here may still be read by a launch
+    queued on the stream; the caching allocator hands its memory only to
+    later work of that stream."""
+    status = _STATUS.get(device)
+    if status is None or status.capacity < tiles:
+        status = _STATUS[device] = ScanStatus(tiles, device)
+    return status
 
 
 def prefix_mul(a: torch.Tensor) -> torch.Tensor:
     """K8: [a0, a0*a1, a0*a1*a2, ...] of an (8, n) Montgomery tensor.  On
-    the card the entry point scans blocks of 2048 elements and, past one
-    block, scans the block totals and applies them: each kernel launch is
-    counted."""
+    the card one launch: a tile of :data:`PREFIX_TILE` elements a block,
+    the tiles chained by a decoupled look-back over the device's
+    :class:`ScanStatus`.  Two streams must not run it on one device at
+    once (the port uses one).  On a failed launch the status buffer is
+    dropped, so that the next call starts from a zeroed one."""
     n = _columns("a", a)
     dev = _device("prefix_mul", a)
     if dev.type == "cpu":
         return fo.prefix_mul(a)
     out = torch.empty_like(a)
-    scratch = torch.empty(NUM_LIMBS * max(1, kernels.library().stark_prefix_scratch(n)), dtype=torch.int32,
-                          device=dev)
-    kernels.launch("prefix_mul", "stark_prefix_mul", kernels.ptr(a), kernels.ptr(out), n, kernels.ptr(scratch),
-                   device=dev, size=n, launches=prefix_launches(n))
+    tiles = -(-n // PREFIX_TILE)
+    status = scan_status(tiles, dev)
+    epoch, base = status.claim(tiles)
+    aggregates, inclusives = status.values
+    try:
+        kernels.launch("prefix_mul", "stark_prefix_mul", kernels.ptr(a), kernels.ptr(out), n,
+                       kernels.ptr(status.ticket), kernels.ptr(status.flags), kernels.ptr(aggregates),
+                       kernels.ptr(inclusives), status.capacity, epoch, base, device=dev, size=n)
+    except RuntimeError:
+        _STATUS.pop(dev, None)
+        raise
     return out
 
 

@@ -1,21 +1,25 @@
-"""Blake2b-256 Merkle tree through the hand-written CUDA kernels (K4, K5
-and the top kernel).
+"""Blake2b-256 Merkle tree through the hand-written CUDA kernels (K4, K5,
+the subtrees kernel and the top kernel).
 
 Counterpart of :mod:`stark_tpu.ops.pallas_merkle`
 (``leaf_digests_pallas``, ``level_hash_pallas``, ``tree_levels``).
-:func:`merkle_leaves`, :func:`merkle_level` and :func:`merkle_top` wrap the
-three kernels of ``csrc/merkle.cu``; their plain PyTorch versions are
+:func:`merkle_leaves`, :func:`merkle_level`, :func:`merkle_subtrees` and
+:func:`merkle_top` wrap the four kernels of ``csrc/merkle.cu``; their
+plain PyTorch versions are
 :func:`stark_tpu_torch.ops.device_merkle.leaf_digests_from_digits`,
-:func:`stark_tpu_torch.ops.device_merkle.level_hash` and
-:func:`stark_tpu_torch.ops.device_merkle.merkle_top_plain`, and run only
+:func:`~stark_tpu_torch.ops.device_merkle.level_hash`,
+:func:`~stark_tpu_torch.ops.device_merkle.merkle_subtrees_plain` and
+:func:`~stark_tpu_torch.ops.device_merkle.merkle_top_plain`, and run only
 for tensors on the CPU.  For a CUDA tensor a wrapper launches its kernel or
 raises.
 
-A tree runs the level kernel, one launch a level, while its level is wider
-than :data:`TOP_WIDTH`, then the top kernel once for every level down to
-the root.  The JAX package splits the same way: its Pallas level kernel
-stops at 256-wide parents (``pallas_merkle.MIN_KERNEL_WIDTH``) and the
-narrower levels run as one XLA function.
+A tree (:func:`tree_levels`) runs the leaf kernel, then the level kernel,
+one launch a level, while its level is wider than :data:`SUBTREE_WIDTH`,
+then the subtrees kernel once for every level down to :data:`TOP_WIDTH`,
+then the top kernel once for every level down to the root.  The JAX
+package runs its Pallas level kernel a level at a time down to 256-wide
+parents (``pallas_merkle.MIN_KERNEL_WIDTH``) and the narrower levels as
+one XLA function.
 """
 
 from __future__ import annotations
@@ -23,12 +27,18 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .device_merkle import leaf_digests_from_digits, level_hash, merkle_top_plain, top_slabs
+from .device_merkle import leaf_digests_from_digits, level_hash, merkle_subtrees_plain, merkle_top_plain, top_slabs
 
 #: widest level that :func:`tree_levels` hands to the top kernel: one
 #: block hashing the levels above it beats a launch a level
 TOP_WIDTH = 512
-# widest level the top kernel takes (its shared memory; csrc/merkle.cu kTopMaxWidth)
+#: widest level that :func:`tree_levels` hands to the subtrees kernel,
+#: which hashes every level above it down to TOP_WIDTH in one launch: the
+#: cheapest split of a fib-2^16 prove's trees in chip_smoke.py's sweep;
+#: read at call time, so tests may lower it
+SUBTREE_WIDTH = 1 << 19
+# widest level the top kernel takes, and the widest subtree a block of the
+# subtrees kernel hashes (their shared memory; csrc/merkle.cu kTopMaxWidth)
 _TOP_MAX_WIDTH = 8192
 
 
@@ -105,17 +115,49 @@ def merkle_top(level: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def merkle_subtrees(level: torch.Tensor, depth: int) -> torch.Tensor:
+    """(8, w) level, w a power of two, 1 <= depth, 2^depth <= min(w, 8192)
+    -> the ``depth`` levels above it, as one flat int32 buffer of
+    8 * (w - w / 2^depth) words (:func:`~stark_tpu_torch.ops.device_merkle.top_slabs`
+    cuts it into the (8, w / 2^k) levels, k = 1 .. depth).
+
+    Replaces the chain of ``level_hash_pallas`` calls in the JAX package's
+    ``tree_levels`` (stark_tpu/ops/pallas_merkle.py) for the middle levels
+    of a tree.  One launch: a block hashes whole subtrees of 2^depth
+    children, level 1 from global memory, each later level from the
+    previous one in shared memory; bound by the ALU work of its
+    compressions, it saves depth - 1 launches and global round trips."""
+    _check("level", level, 8)
+    w = int(level.shape[1])
+    if w < 2 or w & (w - 1):
+        raise ValueError(f"level width must be a power of two >= 2, got {w}")
+    if not 1 <= depth or (1 << depth) > min(w, _TOP_MAX_WIDTH):
+        raise ValueError(f"depth must be >= 1 with 2^depth <= min(w, {_TOP_MAX_WIDTH}), got {depth} at width {w}")
+    if level.device.type == "cpu":
+        return merkle_subtrees_plain(level, depth)
+    out = torch.empty(8 * (w - (w >> depth)), dtype=torch.int32, device=level.device)
+    kernels.launch("merkle_subtrees", "stark_merkle_subtrees", kernels.ptr(level), kernels.ptr(out), w, depth,
+                   device=level.device, size=w)
+    return out
+
+
 def tree_levels(digits: torch.Tensor, tail_width: int):
     """All levels from the (4, n) digits, n a power of two: the (8, w)
     levels for w = n .. tail_width (kept on the device for openings) and
-    the (8,) root words.  The levels above TOP_WIDTH come from the level
+    the (8,) root words.  The levels wider than SUBTREE_WIDTH come from the
+    level kernel, those down to TOP_WIDTH from one launch of the subtrees
     kernel, the rest from one launch of the top kernel."""
     cur = merkle_leaves(digits.contiguous())
     levels = [cur]
-    while cur.shape[1] > TOP_WIDTH:
+    while cur.shape[1] > SUBTREE_WIDTH:
         cur = merkle_level(cur)
         levels.append(cur)
-    if cur.shape[1] > 1:
-        levels += top_slabs(merkle_top(cur), int(cur.shape[1]))
+    w = int(cur.shape[1])
+    if w > TOP_WIDTH:
+        levels += top_slabs(merkle_subtrees(cur, (w // TOP_WIDTH).bit_length() - 1), w)
+        cur = levels[-1]
+        w = TOP_WIDTH
+    if w > 1:
+        levels += top_slabs(merkle_top(cur), w)
     kept = tuple(lv for lv in levels if lv.shape[1] >= tail_width)
     return kept, levels[-1][:, 0]

@@ -135,23 +135,30 @@ def level_hash(level: torch.Tensor) -> torch.Tensor:
     return blake2b256_single_block(m + [0] * 8, 64)
 
 
-def merkle_top_plain(level: torch.Tensor) -> torch.Tensor:
-    """Every level above an (8, w) level, w a power of two >= 2, down to the
-    root, as one flat int32 buffer of 8 * (w - 1) words: level k is the
-    contiguous (8, w / 2^k) slab after those of the levels below it, the
-    root last (see :func:`top_slabs`)."""
+def merkle_subtrees_plain(level: torch.Tensor, depth: int) -> torch.Tensor:
+    """The ``depth`` levels above an (8, w) level, w a power of two >= 2^depth,
+    as one flat int32 buffer of 8 * (w - w / 2^depth) words: level k is the
+    contiguous (8, w / 2^k) slab after those of the levels below it (see
+    :func:`top_slabs`)."""
     slabs = []
-    while level.shape[1] > 1:
+    for _ in range(depth):
         level = level_hash(level)
         slabs.append(level.reshape(-1))
     return torch.cat(slabs)
 
 
+def merkle_top_plain(level: torch.Tensor) -> torch.Tensor:
+    """Every level above an (8, w) level, w a power of two >= 2, down to the
+    root, as one flat int32 buffer of 8 * (w - 1) words, the root last:
+    :func:`merkle_subtrees_plain` of depth log2 w."""
+    return merkle_subtrees_plain(level, int(level.shape[1]).bit_length() - 1)
+
+
 def top_slabs(flat: torch.Tensor, w: int) -> List[torch.Tensor]:
-    """The (8, w / 2^k) views, k = 1 .. log2 w, of a flat buffer laid out
-    as :func:`merkle_top_plain`'s."""
+    """The (8, w / 2^k) views, k = 1, 2, ..., of a flat buffer laid out
+    as :func:`merkle_subtrees_plain`'s, as many as it holds."""
     views, off = [], 0
-    while w > 1:
+    while off < flat.numel():
         w //= 2
         views.append(flat[off : off + 8 * w].view(8, w))
         off += 8 * w

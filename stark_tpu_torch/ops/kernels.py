@@ -49,27 +49,24 @@ _SIGNATURES = {
     "stark_merkle_leaves": [_P, _P, _I64, _P],
     "stark_merkle_level": [_P, _P, _I64, _P],
     "stark_merkle_top": [_P, _P, _I64, _P],
+    "stark_merkle_subtrees": [_P, _P, _I64, _I, _P],
     "stark_fri_fold": [_P, _P, _P, _P, _I64, _P],
     "stark_fs_round": [_P, _I64, _U64, _P, _P, _P],
     "stark_mont_inv": [_P, _P, _I64, _P],
-    "stark_prefix_mul": [_P, _P, _I64, _P, _P],
-    "stark_prefix_scratch": [_I64],
-    "stark_prefix_launches": [_I64],
+    "stark_prefix_mul": [_P, _P, _I64, _P, _P, _P, _P, _I64, ctypes.c_uint32, _U64, _P],
     "stark_geometric_table": [_P, _P, _I, _P, _I64, _P],
     "stark_geometric_step_bits": [_I64],
     "stark_mont_binary": [_P, _P, _P, _I64, _I, _I, _I, _P],
 }
-#: entry points that return something other than a CUDA error code
-_RESTYPES = {"stark_prefix_scratch": _I64}
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
-    "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_top": 0, "fri_fold": 0,
-    "fs_round": 0, "mont_inv": 0, "prefix_mul": 0, "geometric_table": 0, "mont_binary": 0,
+    "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_subtrees": 0, "merkle_top": 0,
+    "fri_fold": 0, "fs_round": 0, "mont_inv": 0, "prefix_mul": 0, "geometric_table": 0, "mont_binary": 0,
 }
 #: size of the launch -> kernel name -> launches since the last reset: the
-#: transform's points (NTT passes), the leaves or the level's width (Merkle
-#: kernels), the codeword's length (fold) or the body's bytes (fs_round)
+#: transform's points (NTT passes), the leaves or the input level's width
+#: (Merkle kernels), the codeword's length (fold) or the body's bytes (fs_round)
 LAUNCHES_BY_SIZE: Dict[int, Dict[str, int]] = {}
 
 _lock = threading.Lock()
@@ -148,23 +145,23 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = _RESTYPES.get(name, ctypes.c_int)
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def launch(kernel: str, entry: str, *args, device: torch.device, size: int, launches: int = 1) -> None:
-    """Call one C entry point on ``device``'s current stream, raise if it
-    reports a CUDA error, and count the ``launches`` kernel launches it
-    made (also under ``size`` in :data:`LAUNCHES_BY_SIZE`)."""
+def launch(kernel: str, entry: str, *args, device: torch.device, size: int) -> None:
+    """Call one C entry point, which launches one kernel, on ``device``'s
+    current stream, raise if it reports a CUDA error, and count the launch
+    (also under ``size`` in :data:`LAUNCHES_BY_SIZE`)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
-    LAUNCHES[kernel] += launches
+    LAUNCHES[kernel] += 1
     by_kernel = LAUNCHES_BY_SIZE.setdefault(size, {})
-    by_kernel[kernel] = by_kernel.get(kernel, 0) + launches
+    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
 
 
 def ptr(t) -> int:

@@ -158,6 +158,58 @@ def test_plain_prefix_and_binary_ops():
     assert _host(cf.neg(ta)) == [(-x) % P for x in a]
 
 
+@pytest.mark.parametrize("pattern", ["none", "tile_edges", "all"])
+def test_plain_prefix_mul_through_tile_edges(pattern):
+    """Three K8 tiles (2 * PREFIX_TILE + 1 elements), no zero, zeros at the
+    tiles' first and last elements, and zeros only: the plain version the
+    kernel is held to against Python ints (a prefix through a zero is zero)."""
+    tile = cf.PREFIX_TILE
+    vals = _values(2 * tile + 1, 12)
+    vals = [v or 1 for v in vals]
+    if pattern == "tile_edges":
+        for i in (tile - 1, tile, 2 * tile):
+            vals[i] = 0
+    elif pattern == "all":
+        vals = [0] * len(vals)
+    want, acc = [], 1
+    for v in vals:
+        acc = acc * v % P
+        want.append(acc)
+    assert _host(cf.prefix_mul(_dev(vals))) == want
+
+
+def test_scan_status_epochs_and_tickets(monkeypatch):
+    """K8's status buffer: a power of two of tiles, zeroed; each call a new
+    epoch and the ticket count at its start; past the last epoch the
+    ticket and the flags are zeroed again, and a buffer too small for a
+    call is refused (the wrapper grows it first)."""
+    status = cf.ScanStatus(3, "cpu")
+    assert status.capacity == 4
+    assert not status.flags.any() and not status.ticket.any() and status.values.shape == (2, 4, 4)
+    assert [status.claim(t) for t in (1, 4, 2)] == [(1, 0), (2, 1), (3, 5)]
+    with pytest.raises(ValueError, match="exceed"):
+        status.claim(5)
+    monkeypatch.setattr(cf, "EPOCHS", 5)
+    status.ticket.fill_(7)
+    status.flags.fill_(3 << 2 | 2)
+    assert status.claim(1) == (4, 7)
+    assert status.claim(2) == (1, 0)  # epoch 5 would not fit: zeroed, counted from 0
+    assert not status.flags.any() and not status.ticket.any()
+    assert cf.ScanStatus(1, "cpu").capacity == 1 and cf.ScanStatus(1025, "cpu").capacity == 2048
+
+
+def test_scan_status_is_kept_a_device_and_grown():
+    dev = torch.device("meta")
+    try:
+        small = cf.scan_status(3, dev)
+        assert cf.scan_status(4, dev) is small
+        grown = cf.scan_status(5, dev)
+        assert grown is not small and grown.capacity == 8 and grown.epoch == 0
+        assert cf.scan_status(2, dev) is grown
+    finally:
+        cf._STATUS.pop(dev, None)
+
+
 def test_field_wrappers_refuse_bad_inputs():
     a = _dev(_values(16, 5))
     with pytest.raises(ValueError, match="contiguous"):

@@ -101,6 +101,53 @@ def test_merkle_top_matches_plain(cuda, log_w):
     assert torch.equal(got, dm.merkle_top_plain(level))
 
 
+# the subtrees kernel at every width a tree hands it, down to TOP_WIDTH, and
+# at small and full depths
+SUBTREE_CASES = [(1 << k, k - 9) for k in range(10, 20)] + [(2, 1), (64, 3), (1024, 1), (8192, 4), (1024, 10),
+                                                            (8192, 13)]
+
+
+@pytest.mark.parametrize("w, depth", SUBTREE_CASES)
+def test_merkle_subtrees_matches_plain(cuda, w, depth):
+    from stark_tpu_torch.ops import cuda_merkle, kernels
+    from stark_tpu_torch.ops import device_merkle as dm
+
+    level = torch.tensor(np.random.default_rng(w + depth).integers(0, 1 << 32, (8, w), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32), device=cuda)
+    before = kernels.LAUNCHES["merkle_subtrees"]
+    before_w = kernels.LAUNCHES_BY_SIZE.get(w, {}).get("merkle_subtrees", 0)
+    got = cuda_merkle.merkle_subtrees(level, depth)
+    assert kernels.LAUNCHES["merkle_subtrees"] == before + 1
+    assert kernels.LAUNCHES_BY_SIZE[w]["merkle_subtrees"] == before_w + 1
+    assert torch.equal(got, dm.merkle_subtrees_plain(level, depth))
+
+
+@pytest.mark.parametrize("logn", [13, 17, 20])
+def test_device_tree_levels_match_the_host_tree(cuda, logn):
+    """K4, K5 above SUBTREE_WIDTH, one subtrees launch down to TOP_WIDTH
+    and one top launch: every kept level and the root equal the port's
+    host tree's."""
+    from stark_tpu_torch.merkle import MerkleTree
+    from stark_tpu_torch.ops import cuda_merkle, field_ops, kernels
+    from stark_tpu_torch.ops import device_merkle as dm
+    from stark_tpu_torch.ops.limbs import from_numpy, to_numpy
+
+    n = 1 << logn
+    rng = np.random.default_rng(n)
+    vals = [(int(a) << 64 | int(b)) % P for a, b in zip(rng.integers(0, 1 << 63, n), rng.integers(0, 1 << 63, n))]
+    vals[:3] = [0, 1, P - 1]
+    kernels.reset_launch_counts()
+    levels, root = dm.tree_arrays_with_root(field_ops.to_mont(from_numpy(pack(vals), cuda)), n)
+    wide = max(0, logn - cuda_merkle.SUBTREE_WIDTH.bit_length() + 1)
+    assert (kernels.LAUNCHES["merkle_level"], kernels.LAUNCHES["merkle_subtrees"],
+            kernels.LAUNCHES["merkle_top"]) == (wide, 1, 1)
+    host = MerkleTree.from_codeword(vals)
+    assert [lv.shape[1] for lv in levels] == [n >> k for k in range(logn - 9)]
+    for lvl, arr in enumerate(levels):
+        assert dm._level_bytes(to_numpy(arr)) == host.levels[lvl], lvl
+    assert dm._digest_bytes(to_numpy(root)) == host.root
+
+
 @pytest.mark.parametrize("logn", [13, 20])
 def test_fold_kernel_matches_plain(cuda, logn):
     from stark_tpu_torch.ops import cuda_fold, kernels
@@ -182,7 +229,10 @@ def test_fibonacci_proof_on_the_card_equals_host(cuda):
         device_merkle.DEVICE_TREE_MIN = floor
     assert proof == host_proof
     assert model.stark.fri.last_fused_rounds == 3
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    # every tree (8192 leaves at most) is narrower than SUBTREE_WIDTH, so
+    # the level kernel's levels go to the subtrees kernel
+    assert kernels.LAUNCHES["merkle_level"] == 0, kernels.LAUNCHES
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k != "merkle_level"), kernels.LAUNCHES
     assert FibonacciStark(1000, device=None).verify(a, b, result, proof)
 
 
@@ -199,12 +249,22 @@ def _field_mont(n: int, seed: int, device):
     return from_numpy(seeded_mont(max(n, 3), seed)[:, :n], device)
 
 
-def _launched(name: str, call, launches: int = 1):
+def _nonzero_mont(n: int, seed: int, device):
+    """n seeded Montgomery values without the leading zero of
+    ``seeded_mont`` (the forms of 1 and p - 1 first), so that no prefix
+    product is zero unless a test puts a zero in."""
+    from stark_tpu_torch.ops.limbs import from_numpy, seeded_mont
+
+    return from_numpy(seeded_mont(max(n + 1, 3), seed)[:, 1 : n + 1], device)
+
+
+def _launched(name: str, call):
+    """call(), which must launch kernel ``name`` once."""
     from stark_tpu_torch.ops import kernels
 
     before = kernels.LAUNCHES[name]
     out = call()
-    assert kernels.LAUNCHES[name] == before + launches
+    assert kernels.LAUNCHES[name] == before + 1
     return out
 
 
@@ -236,13 +296,67 @@ def test_mont_inv_kernel_zero_patterns(cuda, n, pattern):
     assert torch.equal(got, field_ops.mont_inv(a))
 
 
-@pytest.mark.parametrize("n", FIELD_SIZES)
+# K8 also past the tiles the card holds at once (2^21 + 1: 2049 tiles; 2^23: 8192)
+PREFIX_SIZES = FIELD_SIZES + [(1 << 21) + 1, 1 << 23]
+PREFIX_TILE = 1024  # elements a K8 block scans (csrc/fieldvec.cu kScanChunk)
+
+
+@pytest.mark.parametrize("n", PREFIX_SIZES)
 def test_prefix_mul_kernel_matches_plain(cuda, n):
     from stark_tpu_torch.ops import cuda_field, field_ops
 
-    a = _field_mont(n, n + 1, cuda)
-    got = _launched("prefix_mul", lambda: cuda_field.prefix_mul(a), cuda_field.prefix_launches(n))
+    assert cuda_field.PREFIX_TILE == PREFIX_TILE
+    a = _nonzero_mont(n, n + 1, cuda)
+    got = _launched("prefix_mul", lambda: cuda_field.prefix_mul(a))
+    want = field_ops.prefix_mul(a)
+    assert bool((want != 0).any(0).all())  # no prefix is zero: every tile's look-back counts
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [3 * PREFIX_TILE + 5, (1 << 20) + 1])
+@pytest.mark.parametrize("pattern", ["tile_edges", "zero_tile", "all_zero"])
+def test_prefix_mul_kernel_zero_patterns(cuda, n, pattern):
+    """Zeros at the first and last element of K8's second tile, a whole
+    tile of zeros, and zeros only: every prefix from the first zero on is
+    zero."""
+    from stark_tpu_torch.ops import cuda_field, field_ops
+
+    a = _nonzero_mont(n, n + 2, cuda)
+    if pattern == "tile_edges":
+        a[:, [PREFIX_TILE, 2 * PREFIX_TILE - 1]] = 0
+    elif pattern == "zero_tile":
+        a[:, PREFIX_TILE : 2 * PREFIX_TILE] = 0
+    else:
+        a.zero_()
+    got = _launched("prefix_mul", lambda: cuda_field.prefix_mul(a))
     assert torch.equal(got, field_ops.prefix_mul(a))
+
+
+def test_prefix_mul_kernel_back_to_back(cuda):
+    """50 calls queued back to back on different inputs and sizes, each a
+    new epoch of the one status buffer: flags of earlier calls must read
+    as nothing published."""
+    from stark_tpu_torch.ops import cuda_field, field_ops
+
+    sizes = [1 + (k * 7919) % (40 * PREFIX_TILE) for k in range(50)]
+    inputs = [_nonzero_mont(n, 1000 + k, cuda) for k, n in enumerate(sizes)]
+    outs = [_launched("prefix_mul", lambda a=a: cuda_field.prefix_mul(a)) for a in inputs]
+    for a, got in zip(inputs, outs):
+        assert torch.equal(got, field_ops.prefix_mul(a)), a.shape[1]
+
+
+def test_prefix_mul_kernel_after_the_status_buffer_grows(cuda):
+    """A call on a fresh one-tile buffer, then one that grows it."""
+    from stark_tpu_torch.ops import cuda_field, field_ops
+
+    small, large = _nonzero_mont(100, 1, cuda), _nonzero_mont(50 * PREFIX_TILE + 3, 2, cuda)
+    cuda_field._STATUS.pop(small.device, None)
+    got_small = _launched("prefix_mul", lambda: cuda_field.prefix_mul(small))
+    assert cuda_field._STATUS[small.device].capacity == 1
+    got_large = _launched("prefix_mul", lambda: cuda_field.prefix_mul(large))
+    assert cuda_field._STATUS[large.device].capacity == 64
+    assert torch.equal(got_small, field_ops.prefix_mul(small))
+    assert torch.equal(got_large, field_ops.prefix_mul(large))
 
 
 @pytest.mark.parametrize("n", FIELD_SIZES)

@@ -11,7 +11,12 @@ cases 0, 1, p - 1, 2^32 - 1, 2^32 and 2^96 + 5):
   auth path; at 2^13 leaves against the port's own host ``MerkleTree``
   (root and four auth paths), no JAX;
 * the top kernel's plain version: its flat buffer cut by ``top_slabs``
-  equals the chain of ``level_hash`` at every width from 2 to 2^12.
+  equals the chain of ``level_hash`` at every width from 2 to 2^12;
+* the subtrees kernel's plain version likewise, at (w, depth) from (2, 1)
+  to (2^13, 4) and at full depth; ``tree_levels`` with ``SUBTREE_WIDTH``
+  lowered to 2^11, against the port's host tree at 2^13 and 2^14 leaves,
+  with the widths each kernel was called at;
+* the wrappers' refusals of bad widths, depths, dtypes and shapes.
 
 Tolerance: none (hashes are compared byte for byte).
 """
@@ -149,6 +154,69 @@ def test_top_slabs_of_merkle_top_are_the_level_chain(log_w):
         level = tdm.level_hash(level)
         assert slab.is_contiguous() and torch.equal(slab, level)
     assert slabs[-1].data_ptr() == flat[-8:].data_ptr()  # the root is the last slab
+
+
+@pytest.mark.parametrize("w, depth", [(2, 1), (4, 1), (4, 2), (64, 3), (512, 1), (1024, 2), (2048, 2), (4096, 3),
+                                      (8192, 4), (1024, 10)])
+def test_merkle_subtrees_slabs_are_the_level_chain(w, depth):
+    level = torch.from_numpy(np.random.default_rng(w + depth).integers(0, 1 << 32, (8, w), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    flat = cuda_merkle.merkle_subtrees(level, depth)  # the plain version on the CPU
+    assert flat.shape == (8 * (w - (w >> depth)),)
+    slabs = tdm.top_slabs(flat, w)
+    assert [s.shape[1] for s in slabs] == [w >> k for k in range(1, depth + 1)]
+    for slab in slabs:
+        level = tdm.level_hash(level)
+        assert slab.is_contiguous() and torch.equal(slab, level)
+
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14])
+def test_tree_levels_split_at_a_lowered_subtree_width_match_the_ports_host_tree(n, monkeypatch):
+    """The level kernel runs only on levels wider than SUBTREE_WIDTH, the
+    subtrees kernel once from SUBTREE_WIDTH down to TOP_WIDTH, the top
+    kernel once from there; the kept levels and the root are the host
+    tree's."""
+    monkeypatch.setattr(cuda_merkle, "SUBTREE_WIDTH", 1 << 11)
+    calls = []
+    for name in ("merkle_level", "merkle_subtrees", "merkle_top"):
+        def spy(level, *args, _name=name, _fn=getattr(cuda_merkle, name)):
+            calls.append((_name, int(level.shape[1])) + args)
+            return _fn(level, *args)
+        monkeypatch.setattr(cuda_merkle, name, spy)
+    rng = np.random.default_rng(n + 1)
+    vals = [(int(a) << 64 | int(b)) % P for a, b in zip(rng.integers(0, 1 << 63, n), rng.integers(0, 1 << 63, n))]
+    digits = np.array([[(v >> (32 * j)) & 0xFFFFFFFF for v in vals] for j in range(4)], dtype=np.uint32)
+    kept, root = cuda_merkle.tree_levels(from_numpy(digits, "cpu"), tdm.TAIL_WIDTH)
+    wide = [("merkle_level", w) for w in (n, n // 2, n // 4) if w > 1 << 11]
+    assert calls == wide + [("merkle_subtrees", 1 << 11, 2), ("merkle_top", 512)]
+    host = PortMerkleTree.from_codeword(vals)
+    assert [lv.shape[1] for lv in kept] == [w for w in (n, n // 2, n // 4, n // 8, n // 16) if w >= tdm.TAIL_WIDTH]
+    for lvl, arr in enumerate(kept):
+        assert tdm._level_bytes(to_numpy(arr)) == host.levels[lvl]
+    assert tdm._digest_bytes(to_numpy(root)) == host.root
+
+
+@pytest.mark.parametrize("w, depth, error", [
+    (6, 1, ValueError),  # not a power of two
+    (12, 2, ValueError),
+    (8, 4, ValueError),  # 2^depth wider than the level
+    (8, 0, ValueError),
+    (1 << 14, 14, ValueError),  # a subtree wider than a block takes
+    ("int64", 1, TypeError),
+    ("rows", 1, ValueError),
+    ("strided", 1, ValueError),
+])
+def test_merkle_subtrees_refuses_bad_inputs(w, depth, error):
+    if w == "int64":
+        level = torch.zeros((8, 16), dtype=torch.int64)
+    elif w == "rows":
+        level = torch.zeros((7, 16), dtype=torch.int32)
+    elif w == "strided":
+        level = torch.zeros((8, 32), dtype=torch.int32)[:, ::2]
+    else:
+        level = torch.zeros((8, w), dtype=torch.int32)
+    with pytest.raises(error):
+        cuda_merkle.merkle_subtrees(level, depth)
 
 
 def test_kernel_wrappers_validate_inputs(digits):
