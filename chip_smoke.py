@@ -39,13 +39,22 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    a block timed at one element and at one block; kernel times by CUDA
    events around launches queued back to back (``ops/timing.device_ms``),
    plain times around one call;
+   the Rescue permutation kernel (R1) in both modes (the final state, all
+   28 states) at batches of 1 to 2^18 + 1 (``RESCUE_BATCHES``), 64
+   instances also against the host ``RescuePrime.hash`` / ``trace``, every
+   inverse S-box output of a 4096-instance trace cubed back to its input,
+   each mode timed at 4096 and 2^18 instances (``RESCUE_TIMED``);
 3. FibonacciStark(1000) proved on the card, byte-identical to the port's
    host prover (no backend) on the same seeded randomness, its trace
    interpolated on the card (the host interpolation raises while the card
-   proves);
+   proves); ``RescueStark.prove_batch`` of 8 inputs on the card (its
+   witnesses from R1, whose counter must move in that run), and
+   MimcStark(30) and RescueChainStark(4) through the device pipeline (its
+   floor lowered to 512 points), each byte-identical to the
+   host prover's;
 4. FibonacciStark(65536) proved on the card over its 2^20-point FRI
-   domain, its trace interpolated on the card, with every kernel's launch
-   counter > 0 for that prove, the level kernel launched only on levels
+   domain, its trace interpolated on the card, with every launch counter
+   but R1's > 0 for that prove, the level kernel launched only on levels
    wider than ``SUBTREE_WIDTH`` and the subtrees kernel once a tree, the
    prefix product once a call at the sizes of ``PROVE_PREFIX_CALLS``, every
    NTT size it ran among those phase 2 checked (a line gives each size's
@@ -56,12 +65,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    (timed in phase 2, or now for sizes phase 2 did not time), the level
    kernel's split into wide and middle levels, and the middle levels as
    the chain of level launches the subtrees kernel replaces;
-5. a JSON line of the kernels, then the last line
-   {"ok": true, "device": {...}}.
+5. RescueChainStark(4096) on the card (114,688 rows, 2^20-point FRI
+   domain): its AIR built once (the time on a line of its own), the host
+   library's hash chain asserted as the witness's source, a cold and a
+   warm prove with their stages, every kernel but R1 launched
+   (counts set to 0 just before the cold prove, read just after), its K8
+   calls and NTT sizes checked as in phase 4, peak device memory, the
+   proof accepted by the port's host verifier and a wrong claim rejected,
+   and each kernel's device time in that prove;
+6. a JSON line of the kernels (``launches``: the fib-2^16 prove's, R1's
+   in prove_batch; ``chain_launches`` and ``chain_prove_ms``: the chain
+   prove's), then the last line {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes over the memory rate and its
 warp instructions (counted in the SASS for this run's shapes) over the
-issue and pipe rates of the card's SMs at their top clock.
+issue and pipe rates of the card's SMs at their top clock.  K7-K10 and
+R1 count field products, each priced at the instructions of one product
+in K7's SASS: the fewest an element needs for K7-K10, the 9,180 of R1's
+chain an instance for R1.
 
 ``--times DIR`` times the NTT passes at every size, the Fiat-Shamir round
 at the cascade's 8 bodies, the middle levels of the prove's trees (2^13
@@ -83,6 +104,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -126,6 +148,19 @@ FIELD_MAIN = {"mont_inv": 1 << 20, "prefix_mul": 2 * TRACE_ROWS - 1, "geometric_
 PROVE_PREFIX_CALLS = {TRACE_ROWS: 8, TRACE_ROWS + 1: 2, 2 * TRACE_ROWS - 1: 2}
 # K8 is also checked (untimed) past the tiles the card holds at once
 PREFIX_LARGE = ((1 << 21) + 1, 1 << 23)
+# the chain prove's trace interpolation: RescueChainStark(4096)'s 28 * 4096
+# rows + 8 randomizers, n + 1 and 2n - 1; checked (and its K8 calls
+# counted) like the fib-2^16 prove's sizes
+CHAIN_HASHES = 4096
+CHAIN_ROWS = 28 * CHAIN_HASHES + 8
+CHAIN_FIELD_SIZES = (CHAIN_ROWS, CHAIN_ROWS + 1, 2 * CHAIN_ROWS - 1)
+CHAIN_PREFIX_CALLS = {CHAIN_ROWS: 8, CHAIN_ROWS + 1: 2, 2 * CHAIN_ROWS - 1: 2}
+# R1's batches: one instance, prove_batch's 8, around a warp and a block of
+# 64, a benchmark batch of 4096 (bench.py _bench_rescue) and past 2^18;
+# timed at 4096 and 2^18; the kernels line's row is 4096 in trace mode
+RESCUE_BATCHES = (1, 8, 31, 32, 33, 255, 4096, (1 << 18) + 1)
+RESCUE_TIMED = (4096, 1 << 18)
+RESCUE_MAIN = 4096
 # elements one K7 block inverts (csrc/fieldvec.cu kInvChunk); the field
 # kernels are also checked, untimed, on either side of one such block and
 # of the 2^20 domain, and K7 at zero patterns around its blocks
@@ -172,6 +207,49 @@ def middle_levels(cuda_merkle, level):
     if level.shape[1] > 512:
         level = cuda_merkle.merkle_subtrees(level, (level.shape[1] // 512).bit_length() - 1)[-8 * 512 :].view(8, 512)
     return level
+
+
+def rescue_state(limbs, b: int, seed: int, dev):
+    """(8, 2, b) seeded Montgomery Rescue states."""
+    return limbs.from_numpy(limbs.seeded_mont(2 * b + 1, seed)[:, 1:], dev).reshape(8, 2, b).contiguous()
+
+
+def rescue_products(params) -> int:
+    """Field products one permutation needs at the least: each of its
+    rounds cubes the two elements (2 products each), mixes them twice (4
+    each) and takes two inverse S-boxes x^e, e = ``RESCUE_ALPHA_INV``.  A
+    product chain for x^e is an addition chain for e, and none is shorter
+    than log2 e + log2 popcount(e) - 2.13 (Schoenhage, 1975): 131 products
+    for this e, where byte windows reach 149 and csrc/rescue.cu's 4-bit
+    windows run 164."""
+    e = params.RESCUE_ALPHA_INV
+    sbox = math.ceil(math.log2(e) + math.log2(bin(e).count("1")) - 2.13)
+    return params.RESCUE_N * (2 * sbox + 4 + 8)
+
+
+def sbox_cubes_back(torch, fo, limbs, params, states, consts) -> bool:
+    """Every inverse S-box output of a (28, 8, 2, B) Montgomery trace cubed
+    back to its input: with s_r the states and c1_r, c2_r round r's
+    constants (columns 4 + 4r .. 7 + 4r of ``consts``), the S-box output
+    t_r = MDS^-1 (s_{r+1} - c2_r) cubed must equal its input
+    MDS s_r^3 + c1_r, in every round and instance."""
+    mds_inv = limbs.mont_tensor([c % params.P for row in params.RESCUE_MDS_INV for c in row], states.device)
+    rounds = consts[:, 4:].reshape(8, params.RESCUE_N, 4, 1)
+
+    def mix(m, x):
+        col = [m[:, k].reshape(8, 1, 1) for k in range(4)]
+        x0, x1 = x[:, :, 0], x[:, :, 1]
+        return torch.stack([fo.add(fo.mont_mul(col[0], x0), fo.mont_mul(col[1], x1)),
+                            fo.add(fo.mont_mul(col[2], x0), fo.mont_mul(col[3], x1))], dim=2)
+
+    def cube(x):
+        return fo.mont_mul(fo.mont_sqr(x), x)
+
+    before = states[:-1].permute(1, 0, 2, 3)  # (8, 27, 2, B)
+    after = states[1:].permute(1, 0, 2, 3)
+    sbox_in = fo.add(mix(consts[:, :4], cube(before)), rounds[:, :, 0:2])
+    sbox_out = mix(mds_inv, fo.sub(after, rounds[:, :, 2:4]))
+    return bool(torch.equal(cube(sbox_out), sbox_in))
 
 
 def say(phase: str, **fields) -> None:
@@ -334,9 +412,14 @@ def main() -> int:
     from stark_tpu_torch import native
     from stark_tpu_torch.field import FieldElement
     from stark_tpu_torch.merkle import MerkleTree
+    from stark_tpu_torch import RescuePrime
+    from stark_tpu_torch.models import rescue_chain
     from stark_tpu_torch.models.fibonacci import FibonacciStark
+    from stark_tpu_torch.models.mimc import MimcStark
+    from stark_tpu_torch.models.rescue_chain import RescueChainStark
+    from stark_tpu_torch.models.rescue_stark import RescueStark
     from stark_tpu_torch.ntt import NTT
-    from stark_tpu_torch.ops import cuda_field, cuda_fold, cuda_fs, cuda_merkle, cuda_ntt, kernels
+    from stark_tpu_torch.ops import cuda_field, cuda_fold, cuda_fs, cuda_merkle, cuda_ntt, cuda_rescue, kernels
     from stark_tpu_torch.ops import device_merkle as dm
     from stark_tpu_torch.ops import field_ops as fo
     from stark_tpu_torch.ops.device_fs import fs_round_plain
@@ -349,6 +432,8 @@ def main() -> int:
     from stark_tpu_torch.stark import Stark
 
     dev = torch.device("cuda")
+    # the kernels of the proving pipeline (the fib and chain paths); R1 runs on prove_batch's
+    pipeline = [k for k in kernels.LAUNCHES if k != "rescue_permutation"]
 
     # -- 1. environment ------------------------------------------------------
     nvcc_line = subprocess.run([kernels._nvcc(), "--version"], capture_output=True, text=True, check=True)
@@ -715,7 +800,7 @@ def main() -> int:
         if field_errs[n]["prefix_mul"]:
             raise AssertionError(f"prefix_mul disagrees with its plain version at n = {n}")
     # the prove's sizes last: the operands still alive while phase 4 proves are 2^20's
-    for n in FIELD_EDGES + FIELD_SIZES:
+    for n in FIELD_EDGES + CHAIN_FIELD_SIZES + FIELD_SIZES:
         calls = field_calls(n)
         field_errs[n] = {name: max_abs_err(torch, kernel(), plain()) for name, (kernel, plain) in calls.items()
                          if name != "prefix_mul"}
@@ -748,6 +833,7 @@ def main() -> int:
     step_bits = cuda_field.geometric_step_bits(1 << 20)
     steps = -(-(1 << 20) // (1 << step_bits))
     say("field_kernels", sizes=list(FIELD_SIZES), edge_sizes=list(FIELD_EDGES), prefix_sizes=list(PREFIX_LARGE),
+        chain_sizes=list(CHAIN_FIELD_SIZES),
         max_abs_err=field_errs,
         k7_zero_patterns=zero_errs, k7_one_block_ms=inv_block, k9_split_2e20={"m": step_bits, "per_thread": steps},
         warp_instructions_per_product=product._asdict(),
@@ -760,6 +846,54 @@ def main() -> int:
         ms={f"{name} @ {n}": timed[name, n] for name in FIELD_MAIN for n in FIELD_SIZES},
         main={name: {"n": FIELD_MAIN[name], "kernel": report[name][0], "plain": report[name][1],
                      "bound": report[name][2], "bound_by": report[name][3]} for name in FIELD_MAIN})
+
+    # R1, the Rescue permutation, in both modes against its plain version;
+    # 64 instances against the host model; the S-boxes of a trace inverted
+    from stark_tpu_torch.ops import rescue
+
+    perm_products = rescue_products(params)
+    rescue_errs, rescue_plain_ms = {}, {}
+    for b in RESCUE_BATCHES:
+        state = rescue_state(limbs, b, b, dev)
+        for trace in (False, True):
+            plain = rescue.trace_mont if trace else rescue.permutation_mont
+            got = cuda_rescue.rescue_permutation(state, trace=trace)
+            # one timed call after a warm-up; the last call's output is checked
+            last = {}
+            rescue_plain_ms[b, trace] = call_ms(lambda: last.update(want=plain(state)), reps=1)
+            want = last.pop("want")
+            rescue_errs[f"{b}/{'trace' if trace else 'final'}"] = max_abs_err(torch, got, want)
+            if b == RESCUE_MAIN and trace and not sbox_cubes_back(torch, fo, limbs, params, got,
+                                                                   rescue.constants(dev)):
+                raise AssertionError(f"an inverse S-box output of R1's trace at {b} does not cube back to its input")
+            del got, want
+    if any(rescue_errs.values()):
+        raise AssertionError(f"R1 disagrees with its plain version: {rescue_errs}")
+    host_inputs = [int(v) % P for v in rng.integers(0, 1 << 62, 64)]
+    rp = RescuePrime()
+    host_traces = [[[v.value for v in row] for row in rp.trace(FieldElement(x))] for x in host_inputs]
+    if rescue.hash_batch(host_inputs, dev) != [t[-1][0] for t in host_traces]:
+        raise AssertionError("R1's hashes differ from the host RescuePrime.hash")
+    card_traces = rescue.trace_batch(host_inputs, dev)
+    if [card_traces[i].tolist() for i in range(64)] != host_traces:
+        raise AssertionError("R1's traces differ from the host RescuePrime.trace")
+    rescue_ms, rescue_bound = {}, {}
+    for b in RESCUE_TIMED:
+        state = rescue_state(limbs, b, 3, dev)
+        for trace in (False, True):
+            rescue_ms[b, trace] = device_ms(lambda: cuda_rescue.rescue_permutation(state, trace=trace))
+            # 64 bytes in, 64 (28 * 64 in trace mode) out an instance
+            rescue_bound[b, trace] = bound(64 * b * (1 + (28 if trace else 1)), product * (perm_products * b / 32))
+    report["rescue_permutation"] = (rescue_ms[RESCUE_MAIN, True], rescue_plain_ms[RESCUE_MAIN, True],
+                                    *rescue_bound[RESCUE_MAIN, True])
+    errs["rescue_permutation"] = 0
+    mode = {False: "final", True: "trace"}
+    say("rescue_kernel", batches=list(RESCUE_BATCHES), max_abs_err=rescue_errs, host_checked=64,
+        sbox_cubes_back_at=RESCUE_MAIN, products_per_permutation=perm_products,
+        ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_ms.items()},
+        hashes_per_s={f"{b}/{mode[t]}": b / v * 1e3 for (b, t), v in rescue_ms.items()},
+        bound_ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_bound.items()},
+        plain_ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_plain_ms.items()})
 
     # the device proves must interpolate their traces on the card: the host
     # interpolation raises while they run
@@ -788,6 +922,35 @@ def main() -> int:
     say("small_prove", steps=1000, fri_domain=8192, proof_bytes=len(proof), identical_to_host=True,
         field_kernel_launches=small_field)
 
+    # RescueStark.prove_batch of 8 on the card, its witnesses from R1; then
+    # MiMC-30 and chain-4 through the device pipeline, its floor lowered to 512 points
+    batch_inputs = [FieldElement(int(x)) for x in rng.integers(1, 1 << 62, 8)]
+    want = RescueStark(device=None, rng=DeterministicRandom(SEED)).prove_batch(batch_inputs)
+    batch_model = RescueStark(rng=DeterministicRandom(SEED))  # the card is the default device
+    kernels.reset_launch_counts()
+    got = batch_model.prove_batch(batch_inputs)
+    batch_launches = dict(kernels.LAUNCHES)
+    if got != want:
+        raise AssertionError("RescueStark.prove_batch on the card differs from the host prover's proofs")
+    if batch_launches["rescue_permutation"] < 1:
+        raise AssertionError(f"RescueStark.prove_batch on the card did not launch R1: {batch_launches}")
+    small_models = {"mimc_30": lambda d: MimcStark(30, device=d, rng=DeterministicRandom(SEED)),
+                    "rescue_chain_4": lambda d: RescueChainStark(4, device=d, rng=DeterministicRandom(SEED))}
+    small_bytes = {}
+    for name, build in small_models.items():
+        host, card = build(None), build(dev)
+        card.stark.backend.device_prover_min = 512
+        if not card.stark._use_device_pipeline():
+            raise AssertionError(f"{name} did not take the device pipeline on its "
+                                 f"{card.stark.fri_domain_length}-point domain")
+        x = FieldElement(77)
+        output, proof = card.prove(x)
+        if (output, proof) != host.prove(x):
+            raise AssertionError(f"{name} proved through the device pipeline on the card differs from the host's")
+        small_bytes[name] = len(proof)
+    say("rescue_models", prove_batch=len(batch_inputs), prove_batch_launches=batch_launches,
+        proof_bytes={"rescue": len(got[0][1]), **small_bytes}, identical_to_host=True)
+
     # -- 4. the real prove ------------------------------------------------------
     steps = 65536
     model = FibonacciStark(steps, rng=DeterministicRandom(SEED))  # the card is the default device
@@ -808,7 +971,7 @@ def main() -> int:
     ntt_launches = {n: v for n, v in ntt_launches.items() if v}
     fused = model.stark.fri.last_fused_rounds
     stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in pipeline if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the 2^16-step prove never launched {missing}: {launches}")
     if fused < 2:
@@ -888,17 +1051,23 @@ def main() -> int:
             return field_calls(size)["mont_binary/mul" if name == "mont_binary" else name][0]
         raise AssertionError(f"no timer for {name} at launch size {size}")
 
-    prove_ms = dict.fromkeys(launches, 0.0)
-    prove_bound_ms = dict.fromkeys(launches, 0.0)
-    for size, counts in by_size.items():
-        for name, count in counts.items():
-            if (name, size) not in timed:
-                timed[name, size] = device_ms(launch_at(name, size))
-            prove_ms[name] += count * timed[name, size]
-            prove_bound_ms[name] += count * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
-                                             else bound_at(name, size)[0])
-    if any(sum(v.get(name, 0) for v in by_size.values()) != launches[name] for name in launches):
-        raise AssertionError(f"launches by size do not add up to the launch counts: {by_size} vs {launches}")
+    def kernel_sums(by_size, launches):
+        """Each kernel's device ms and bound ms in one prove: its launches
+        at each size times its time (bound) at that size."""
+        prove_ms = dict.fromkeys(launches, 0.0)
+        prove_bound_ms = dict.fromkeys(launches, 0.0)
+        for size, counts in by_size.items():
+            for name, count in counts.items():
+                if (name, size) not in timed:
+                    timed[name, size] = device_ms(launch_at(name, size))
+                prove_ms[name] += count * timed[name, size]
+                prove_bound_ms[name] += count * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
+                                                 else bound_at(name, size)[0])
+        if any(sum(v.get(name, 0) for v in by_size.values()) != launches[name] for name in launches):
+            raise AssertionError(f"launches by size do not add up to the launch counts: {by_size} vs {launches}")
+        return prove_ms, prove_bound_ms
+
+    prove_ms, prove_bound_ms = kernel_sums(by_size, launches)
     # the levels the top kernel hashes, as the chain of level launches it replaces
     small_levels_before = sum(v["merkle_top"] * top_sweep[size]["level_chain"]
                               for size, v in by_size.items() if "merkle_top" in v)
@@ -917,11 +1086,89 @@ def main() -> int:
         by_size=[{"size": size, **{k: {"launches": c, "ms": timed[k, size]} for k, c in v.items()}}
                  for size, v in by_size.items()])
 
+    # -- 5. the chain: RescueChainStark(4096) on its 2^20-point FRI domain ----------
+    t0 = time.perf_counter()
+    chain = RescueChainStark(CHAIN_HASHES, rng=DeterministicRandom(SEED))  # the card is the default device
+    chain_setup_s = time.perf_counter() - t0
+    if (chain.stark.fri_domain_length != 1 << 20 or chain.air.trace_length != 28 * CHAIN_HASHES
+            or not chain.stark._use_device_pipeline()):
+        raise AssertionError(f"unexpected chain shape: FRI domain {chain.stark.fri_domain_length}, "
+                             f"trace {chain.air.trace_length}")
+    t0 = time.perf_counter()
+    chain_air = chain.constraints  # built once, on the host
+    chain_air_s = time.perf_counter() - t0
+    print(f"chain AIR build seconds: {chain_air_s:.3f}", flush=True)
+    if rescue_chain._native_rescue() is None:
+        raise AssertionError("the chain's witness would come from the Python golden model, not the host library")
+    x = FieldElement(123456789)
+    t0 = time.perf_counter()
+    chain.air.trace(x)
+    chain_witness_s = time.perf_counter() - t0
+    Stark._interpolate_trace = refuse_host_interpolation
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        chain_out, chain_proof = chain.prove(x)
+        torch.cuda.synchronize()
+        chain_cold_s = time.perf_counter() - t0
+        chain_launches = dict(kernels.LAUNCHES)
+        chain_by_size = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
+        chain_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        chain_stages = {k: round(v, 4) for k, v in sorted(chain.stark.last_profile.totals.items(),
+                                                          key=lambda kv: -kv[1])}
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warm_out, _ = chain.prove(x)
+        torch.cuda.synchronize()
+        chain_warm_s = time.perf_counter() - t0
+        chain_warm_launches = dict(kernels.LAUNCHES)
+        chain_warm_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        chain_warm_stages = {k: round(v, 4) for k, v in sorted(chain.stark.last_profile.totals.items(),
+                                                               key=lambda kv: -kv[1])}
+    finally:
+        Stark._interpolate_trace = host_interpolation
+    chain_ntt = sorted({n for n, v in chain_by_size.items() if any(k.startswith("ntt_") for k in v)})
+    chain_prefix = {n: v["prefix_mul"] for n, v in chain_by_size.items() if "prefix_mul" in v}
+    say("chain_prove", hashes=CHAIN_HASHES, rows=chain.air.trace_length, fri_domain=chain.stark.fri_domain_length,
+        omicron_domain=chain.stark.omicron_domain_length, constraint_terms=[len(c.dict) for c in chain_air],
+        setup_seconds=chain_setup_s, air_build_seconds=chain_air_s, witness_seconds=chain_witness_s,
+        prove_seconds=chain_cold_s, warm_prove_seconds=chain_warm_s, proof_bytes=len(chain_proof),
+        fused_fri_rounds=chain.stark.fri.last_fused_rounds, launches=chain_launches,
+        warm_launches=chain_warm_launches, ntt_sizes=chain_ntt, prefix_mul_by_size=chain_prefix,
+        stages_seconds=chain_stages, warm_stages_seconds=chain_warm_stages, peak_device_mib=chain_peak_mib,
+        warm_peak_device_mib=chain_warm_peak_mib)
+    missing = [k for k in pipeline if chain_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the chain prove never launched {missing}: {chain_launches}")
+    if sorted(set(chain_ntt) - set(ntt_sizes)):
+        raise AssertionError(f"the chain prove ran NTT passes at sizes phase 2 did not check: {chain_ntt}")
+    if chain_prefix != CHAIN_PREFIX_CALLS:
+        raise AssertionError(f"the chain prove launched prefix_mul {chain_prefix} by size, expected {CHAIN_PREFIX_CALLS}")
+    if warm_out != chain_out:
+        raise AssertionError("the warm chain prove claims another output than the cold one")
+    # the port's host verifier, on the AIR built above (the same Stark shape)
+    chain_verifier = RescueChainStark(CHAIN_HASHES, device=None)
+    chain_verifier._constraints = chain_air
+    t0 = time.perf_counter()
+    ok = chain_verifier.verify(chain_out, chain_proof)
+    chain_verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the host verifier rejects the card's chain proof")
+    if chain_verifier.verify(chain_out + FieldElement(1), chain_proof):
+        raise AssertionError("the host verifier accepts a wrong chain output")
+    chain_ms, chain_bound_ms = kernel_sums(chain_by_size, chain_launches)
+    say("chain_kernels", verify_seconds=chain_verify_s, prove_ms=chain_ms, prove_bound_ms=chain_bound_ms,
+        by_size=[{"size": size, **{k: {"launches": c, "ms": timed[k, size]} for k, c in v.items()}}
+                 for size, v in chain_by_size.items()])
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "stark_tpu") or m.startswith(("jax.", "stark_tpu.")))
     if leaked:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {leaked[:5]}")
 
-    # -- 5. result ------------------------------------------------------------
+    # -- 6. result ------------------------------------------------------------
     sources = {
         "ntt_pass1": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:234"),
         "ntt_pass2": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:311"),
@@ -935,12 +1182,16 @@ def main() -> int:
         "prefix_mul": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/geometric_device.py:48"),
         "geometric_table": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/device_prover.py:226"),
         "mont_binary": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/field_ops.py:244"),
+        "rescue_permutation": ("stark_tpu_torch/csrc/rescue.cu", "stark_tpu/ops/rescue.py:92"),
     }
+    # launches on each kernel's own path: the fib-2^16 prove, and prove_batch's for R1
+    path_launches = dict(launches, rescue_permutation=batch_launches["rescue_permutation"])
     rows = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": path_launches[name],
          "max_abs_err": errs[name], "ms": report[name][0], "plain_ms": report[name][1],
          "bound_ms": report[name][2], "bound_by": report[name][3], "library_ms": None, "prove_ms": prove_ms[name],
-         "prove_bound_ms": prove_bound_ms[name]}
+         "prove_bound_ms": prove_bound_ms[name], "chain_launches": chain_launches[name],
+         "chain_prove_ms": chain_ms[name], "chain_prove_bound_ms": chain_bound_ms[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": rows}), flush=True)

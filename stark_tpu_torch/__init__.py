@@ -17,11 +17,21 @@ imports torch and nothing of ``stark_tpu`` or JAX.
   NTT plans, fold, Blake2b tree and Shake256, the backend seam and the
   prover core; the hand-written CUDA kernels (``csrc/*.cu``) are the
   four-step NTT passes, the Blake2b-256 leaf and level kernels, the FRI
-  fold and the Fiat-Shamir round;
-* :mod:`stark_tpu_torch.models.fibonacci` and :mod:`stark_tpu_torch.cli`.
+  fold, the Fiat-Shamir round, the field vector kernels and the Rescue
+  permutation;
+* :class:`RescuePrime` (:mod:`stark_tpu_torch.rescue_prime`, the host
+  golden model of the hash and its AIR), and the batched permutation
+  :mod:`stark_tpu_torch.ops.rescue`, whose kernel is ``csrc/rescue.cu``;
+* the models (:mod:`stark_tpu_torch.models`: ``RescueStark``,
+  ``FibonacciStark``, ``MimcStark``, ``RescueChainStark``) and
+  :mod:`stark_tpu_torch.cli`.
 
 Proofs are byte-identical to the JAX package's host prover on the same
 seeded randomness.
 """
+
+from .rescue_prime import RescuePrime
+
+__all__ = ["RescuePrime"]
 
 __version__ = "0.2.0"

@@ -1,4 +1,5 @@
-"""The port's host C library: batched Blake2b, Keccak and field kernels.
+"""The port's host C library: batched Blake2b, Keccak, field kernels and
+the Rescue-Prime hash chain.
 
 The C sources under ``stark_tpu_torch/csrc/host/`` are compiled at first
 use by the system C compiler into one shared library in ``build/host/`` at
@@ -9,8 +10,8 @@ rebuilds, an unchanged tree reuses the last build), and loaded with
 :func:`library` raises ImportError when the library cannot be built or
 loaded, and remembers the failure; the host modules that use it
 (:mod:`stark_tpu_torch.hashing`, :mod:`stark_tpu_torch.ntt`, the prover's
-batch inversion and folds) then take their pure-Python paths, which
-compute the same bytes.
+batch inversion and folds, the Rescue chain's witness) then take their
+pure-Python paths, which compute the same bytes.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from pathlib import Path
 from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "host"
-_SOURCES = ("blake2b.h", "blake2b.c", "hashing.c", "keccak.c", "fieldvec.c")
+_SOURCES = ("blake2b.h", "blake2b.c", "hashing.c", "keccak.c", "fieldvec.c", "rescue.c")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 _CFLAGS = ("-O3", "-fPIC", "-fopenmp", "-Wall", "-Wextra", "-std=c11", "-shared")
 

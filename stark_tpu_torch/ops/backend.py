@@ -6,6 +6,8 @@ routes the prover's numeric stages to one explicit torch device:
 * ``rs_extend`` / ``rs_restrict`` — coset NTT evaluation / interpolation;
 * ``poly_multiply`` — NTT products (trace interpolation chirps);
 * ``fri_fold`` — the FRI fold (the K6 kernel on the card);
+* ``rescue_hash`` / ``rescue_trace`` — batched Rescue-Prime permutations
+  (the R1 kernel on the card), the witnesses of ``RescueStark.prove_batch``;
 * ``make_prover_core`` — the device-resident prover core
   (:mod:`stark_tpu_torch.ops.device_prover`).
 
@@ -23,6 +25,7 @@ import torch
 
 from ..params import P
 from . import field_ops as fo
+from . import rescue
 from .cuda_fold import fri_fold
 from .cuda_ntt import CUDA_NTT_MIN_SIZE, get_cuda_plan
 from .limbs import _fold_tables, from_numpy, mont_tensor, pack, to_numpy, unpack
@@ -115,7 +118,10 @@ class TorchBackend:
         return unpack(to_numpy(fo.from_mont(fri_fold(cw, a, inv_table))))
 
     def rescue_hash(self, inputs: Sequence[int]) -> List[int]:
-        raise NotImplementedError("batched Rescue is not ported to the torch backend yet")
+        """Batched Rescue-Prime hashes of ``inputs`` on this device (the
+        Rescue permutation kernel on the card)."""
+        return rescue.hash_batch(inputs, self.device)
 
     def rescue_trace(self, inputs: Sequence[int]):
-        raise NotImplementedError("batched Rescue is not ported to the torch backend yet")
+        """Batched Rescue-Prime traces: object array (B, N+1, m) of ints."""
+        return rescue.trace_batch(inputs, self.device)

@@ -5,12 +5,14 @@ Counterpart of :mod:`stark_tpu.ops.field_ops`.  Inputs and outputs are
 (:mod:`stark_tpu_torch.ops.limbs`); Montgomery form uses R = 2^128, so
 every output equals the JAX package's limb for limb.
 
-Inside, limbs widen to ``int64``.  The CIOS product exploits
-p = 0xCB80 * 2^112 + 1 exactly as the JAX code does: the per-step
-quotient is m = -t0 mod 2^16 and m * p touches only limbs 0, 7 and 8.
+Inside, limbs widen to ``int64``.  The Montgomery product exploits
+p = 0xCB80 * 2^112 + 1: p == 1 (mod 2^32), so a reduction step's
+quotient is m = -t0 mod 2^32 and m * p touches only three 32-bit words.
 The 64 partial products of one multiply are formed as one broadcast
-``(8, 8, *batch)`` product, so a multiply is a few dozen tensor ops
-rather than hundreds.  Carries and borrows share one sweep
+product into a padded buffer whose reshape sums them along their
+anti-diagonals; the reduction then runs over four 32-bit words, so a
+multiply is ~70 tensor ops, where a 16-bit CIOS loop takes ~180.
+Elsewhere carries and borrows share one sweep
 (:func:`_sweep`): ``>>`` on a signed ``int64`` is an arithmetic shift, so
 ``s >> 16`` and ``s & 0xFFFF`` are floor-division and modulo for negative
 limbs too.
@@ -91,29 +93,62 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (a == 0).all(dim=0)
 
 
+_WORD_MASK = (1 << 32) - 1
+#: word 3 of p in 32-bit words: p = 1 + P_WORD3 * 2^96
+_P_WORD3 = P_TOP << LIMB_BITS
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """CIOS Montgomery product a * b * 2^-128 mod p."""
+    """Montgomery product a * b * 2^-128 mod p.
+
+    The 64 limb products, summed along their anti-diagonals into the 16
+    columns of a * b (each < 2^35) by one padded reshape, are paired into
+    eight 32-bit words (< 2^52).  The reduction runs over 32-bit words:
+    p == 1 (mod 2^32), so word i's quotient is m_i = -t_i mod 2^32, and
+    m_i * p = m_i + m_i * P_TOP * 2^(112 + 32 i) touches words i, i+3 and
+    i+4 only; of those additions only m_0's into word 3 is read by a later
+    step, the rest are made at once after the four steps.  Then one carry
+    sweep over the four high words and one subtraction of p where the
+    value is >= p.  About 70 tensor ops, each on a whole row of the
+    batch."""
     a, b = _wide(a, b)
-    prods = a.unsqueeze(1) * b.unsqueeze(0)  # [j, i] = a_j * b_i < 2^32
-    lo = prods & LIMB_MASK
-    hi = prods >> LIMB_BITS
-    zero = torch.zeros_like(a[:1])
-    t = torch.zeros((NUM_LIMBS + 1,) + a.shape[1:], dtype=torch.int64, device=a.device)
-    for i in range(NUM_LIMBS):
-        # t += a * b_i, product halves accumulated without carries
-        t[:NUM_LIMBS] += lo[:, i]
-        t[1:] += hi[:, i]
-        # p == 1 (mod 2^16): quotient m = -t0 mod 2^16; m * p = m + m*P_TOP*2^112
-        m = (-t[0]) & LIMB_MASK
-        mp = m * P_TOP
-        carry = (t[0] + m) >> LIMB_BITS
-        t[NUM_LIMBS - 1] += mp & LIMB_MASK
-        t[NUM_LIMBS] += mp >> LIMB_BITS
-        # shift one limb right, folding the carry of the dead low limb
-        t = torch.cat([t[1:], zero])
-        t[0] += carry
-    v, _ = _sweep(t)
-    return _canonicalize(v)
+    shape = a.shape
+    n = a[0].numel()
+    # [j, i] = a_j * b_i in rows 17 long: (j, i) lands in column 16 j + (i + j) of the flat buffer
+    prods = torch.zeros((NUM_LIMBS, 17, n), dtype=torch.int64, device=a.device)
+    torch.mul(a.reshape(NUM_LIMBS, 1, n), b.reshape(1, NUM_LIMBS, n), out=prods[:, :NUM_LIMBS])
+    cols = prods.reshape(17 * NUM_LIMBS, n)[: 16 * NUM_LIMBS].reshape(NUM_LIMBS, 8, 2, n).sum(0)
+    words = list((cols[:, 0] + (cols[:, 1] << LIMB_BITS)).unbind(0))
+    ms = []
+    carry = None
+    for i in range(4):
+        v = words[i] if carry is None else words[i].add_(carry)
+        ms.append(v.neg().bitwise_and_(_WORD_MASK))
+        carry = v.add_(ms[-1]).bitwise_right_shift_(32)  # the low word is now 0
+        if i == 0:  # m_0 * P_TOP * 2^112 lands 16 bits into word 3
+            words[3].add_((ms[0] * P_TOP & LIMB_MASK) << LIMB_BITS)
+    words[4].add_(carry)
+    q = torch.stack(ms) * P_TOP  # (4, n)
+    high = torch.stack(words[4:])
+    high += q >> LIMB_BITS
+    high[:3] += (q[1:] & LIMB_MASK) << LIMB_BITS
+    # value < 2p: sweep the four high words, the top one keeps its carry
+    out, carry = [], None
+    for k in range(3):
+        s = high[k] if carry is None else high[k] + carry
+        out.append(s & _WORD_MASK)
+        carry = s >> 32
+    out.append(high[3] + carry)
+    # minus p; keep the difference where no borrow leaves the top word
+    diff, borrow = [], None
+    for k, pk in enumerate((1, 0, 0)):
+        s = out[k] - pk if borrow is None else out[k] - pk + borrow
+        diff.append(s & _WORD_MASK)
+        borrow = s >> 32
+    diff.append(out[3] - _P_WORD3 + borrow)
+    diff = torch.stack(diff)
+    v = torch.where(diff[3] >= 0, diff, torch.stack(out))
+    return torch.stack([v & LIMB_MASK, v >> LIMB_BITS], dim=1).reshape(shape).to(torch.int32)
 
 
 def mont_sqr(a: torch.Tensor) -> torch.Tensor:
@@ -133,6 +168,33 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
 def mont_one(like: torch.Tensor) -> torch.Tensor:
     """Montgomery form of 1 (= R mod p), broadcast against ``like``."""
     return _const(R_MOD_P, like).to(torch.int32).expand(like.shape).contiguous()
+
+
+def mont_pow_fixed(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent (Montgomery in and out) for a fixed Python-int exponent,
+    elementwise: fixed 4-bit windows, most significant first (4 squarings
+    and a product by the digit's power a window), the powers a^d of the
+    digits that occur built on demand (a^(2k) = (a^k)^2, a^(2k+1) =
+    a^(2k) * a).  The counterpart of the JAX package's
+    ``field_ops.mont_pow_fixed``, with the same values; ``csrc/rescue.cu``
+    runs the same chain for the Rescue inverse S-box."""
+    if exponent == 0:
+        return mont_one(a)
+    powers = {1: a}
+
+    def power(d: int) -> torch.Tensor:
+        if d not in powers:
+            powers[d] = mont_sqr(power(d // 2)) if d % 2 == 0 else mont_mul(power(d - 1), a)
+        return powers[d]
+
+    digits = [int(c, 16) for c in format(exponent, "x")]  # most significant first
+    acc = power(digits[0])
+    for d in digits[1:]:
+        for _ in range(4):
+            acc = mont_sqr(acc)
+        if d:
+            acc = mont_mul(acc, power(d))
+    return acc
 
 
 def prefix_mul(a: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@
 * :func:`call_ms`: one call from an idle queue, what a caller waits,
   the wrapper's host time included.
 
-Each is the median of ``REPS`` repetitions.
+Each is the median of ``REPS`` repetitions (``call_ms``: of ``reps``).
 """
 
 from __future__ import annotations
@@ -41,12 +41,13 @@ def device_ms(fn, launches: int = LAUNCHES_PER_REP) -> float:
     return statistics.median(times)
 
 
-def call_ms(fn) -> float:
-    """Median time of one fn() started on an idle queue, host part included."""
+def call_ms(fn, reps: int = REPS) -> float:
+    """Median time of one fn() started on an idle queue, host part
+    included, over ``reps`` calls after a warm-up call."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

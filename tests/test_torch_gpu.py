@@ -230,9 +230,11 @@ def test_fibonacci_proof_on_the_card_equals_host(cuda):
     assert proof == host_proof
     assert model.stark.fri.last_fused_rounds == 3
     # every tree (8192 leaves at most) is narrower than SUBTREE_WIDTH, so
-    # the level kernel's levels go to the subtrees kernel
-    assert kernels.LAUNCHES["merkle_level"] == 0, kernels.LAUNCHES
-    assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k != "merkle_level"), kernels.LAUNCHES
+    # the level kernel's levels go to the subtrees kernel; the Rescue
+    # permutation is not on a prove's path
+    assert kernels.LAUNCHES["merkle_level"] == 0 and kernels.LAUNCHES["rescue_permutation"] == 0, kernels.LAUNCHES
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k not in ("merkle_level", "rescue_permutation")), \
+        kernels.LAUNCHES
     assert FibonacciStark(1000, device=None).verify(a, b, result, proof)
 
 
@@ -423,3 +425,90 @@ def test_device_geometric_interpolate_on_the_card_equals_host(cuda):
     r_inv = pow(R_MOD_P, -1, P)
     want = geometric_interpolate([pow(q, i, P) for i in range(n)], ys, q)
     assert [v * r_inv % P for v in unpack(to_numpy(got))] == want
+
+
+# the Rescue permutation kernel (R1): one instance a thread, 64 a block;
+# batches around a warp and a block, the 8 of prove_batch in chip_smoke.py,
+# the 4096 of a benchmark batch and more than 2^16 instances
+RESCUE_BATCHES = [1, 8, 31, 32, 33, 63, 64, 65, 255, 4096, (1 << 16) + 1]
+
+
+def _rescue_state(b: int, seed: int, device):
+    from stark_tpu_torch.ops.limbs import from_numpy, seeded_mont
+
+    return from_numpy(seeded_mont(2 * b + 1, seed)[:, 1:], device).reshape(8, 2, b).contiguous()
+
+
+@pytest.mark.parametrize("b", RESCUE_BATCHES)
+@pytest.mark.parametrize("trace", [False, True])
+def test_rescue_permutation_kernel_matches_plain(cuda, b, trace):
+    from stark_tpu_torch.ops import rescue
+    from stark_tpu_torch.ops.cuda_rescue import rescue_permutation
+
+    state = _rescue_state(b, b, cuda)
+    got = _launched("rescue_permutation", lambda: rescue_permutation(state, trace=trace))
+    want = rescue.trace_mont(state) if trace else rescue.permutation_mont(state)
+    assert got.shape == ((28,) if trace else ()) + (8, 2, b)
+    assert torch.equal(got, want)
+
+
+def test_rescue_permutation_runs_its_plain_version_on_cpu_tensors(cuda):
+    from stark_tpu_torch.ops import kernels, rescue
+    from stark_tpu_torch.ops.cuda_rescue import rescue_permutation
+
+    state = _rescue_state(3, 7, cuda)
+    before = kernels.LAUNCHES["rescue_permutation"]
+    on_cpu = rescue_permutation(state.cpu(), trace=True)
+    assert kernels.LAUNCHES["rescue_permutation"] == before
+    assert torch.equal(on_cpu, rescue.trace_mont(state.cpu()))
+    assert torch.equal(_launched("rescue_permutation", lambda: rescue_permutation(state, trace=True)).cpu(), on_cpu)
+
+
+def test_rescue_batches_on_the_card_equal_the_host_model(cuda):
+    from stark_tpu_torch import RescuePrime
+    from stark_tpu_torch.ops import rescue
+
+    rng = np.random.default_rng(64)
+    inputs = [int(v) % P for v in rng.integers(0, 1 << 62, 64)]
+    rp = RescuePrime()
+    hashes = _launched("rescue_permutation", lambda: rescue.hash_batch(inputs, cuda))
+    assert hashes == [rp.hash(FieldElement(x)).value for x in inputs]
+    traces = _launched("rescue_permutation", lambda: rescue.trace_batch(inputs, cuda))
+    assert [traces[i].tolist() for i in range(64)] == [
+        [[v.value for v in row] for row in rp.trace(FieldElement(x))] for x in inputs
+    ]
+
+
+def test_rescue_prove_batch_on_the_card_equals_host(cuda):
+    from stark_tpu_torch.models.rescue_stark import RescueStark
+    from stark_tpu_torch.ops import kernels
+
+    inputs = [FieldElement(x) for x in (3, 5, 7, 11)]
+    want = RescueStark(device=None, rng=DeterministicRandom(9)).prove_batch(inputs)
+    kernels.reset_launch_counts()
+    got = RescueStark(device=cuda, rng=DeterministicRandom(9)).prove_batch(inputs)
+    assert kernels.LAUNCHES["rescue_permutation"] == 1
+    assert [(o.value, p) for o, p in got] == [(o.value, p) for o, p in want]
+
+
+@pytest.mark.parametrize("model", ["mimc", "rescue-chain"])
+def test_small_models_through_the_device_pipeline_on_the_card_equal_host(cuda, model):
+    from stark_tpu_torch.models.mimc import MimcStark
+    from stark_tpu_torch.models.rescue_chain import RescueChainStark
+
+    def build(device):
+        if model == "mimc":
+            return MimcStark(30, device=device, rng=DeterministicRandom(8))
+        return RescueChainStark(4, device=device, rng=DeterministicRandom(21))
+
+    x = FieldElement(77)
+    host = build(None)
+    card = build(cuda)
+    card.stark.backend.device_prover_min = 512
+    assert card.stark._use_device_pipeline()
+    if model == "mimc":
+        assert card.prove(x) == host.prove(x)
+    else:
+        out, proof = card.prove(x)
+        assert (out, proof) == host.prove(x)
+        assert host.verify(out, proof) and not host.verify(out + FieldElement(1), proof)
