@@ -44,6 +44,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    instances also against the host ``RescuePrime.hash`` / ``trace``, every
    inverse S-box output of a 4096-instance trace cubed back to its input,
    each mode timed at 4096 and 2^18 instances (``RESCUE_TIMED``);
+2b. the TPU timing probes B1-B4 through their entry points
+   (``stark_tpu_torch.benches``: ``lazy_limb_experiment``, ``quick_timing``,
+   ``mont_mul_experiments``, ``merkle_roofline``, each ``run``), launch
+   counts set to 0 just before and read just after, every probe kernel
+   launched: each kernel bit-exact against its plain version at the
+   probe's full shape (2^20 elements; a 2^20-wide level), B1-B3's chains
+   also against Python ints, B3's base and hint16 against B2's chain of
+   the field product, the 1- and 6-round kernels (the level kernel's
+   template; at 12 rounds B4 runs the level kernel), B2's four-step
+   transforms at 2^20 and 2^22 against the plain plan; the stub's
+   function also as one library call (``torch.bitwise_xor``), checked
+   and timed; a line a probe with its kernel, plain and bound ms (B2 and
+   B3's base and hint16 also B2's bound): B1-B3 ms a full-array
+   product and M products a second, B2 the forward, coset and inverse
+   transforms, B3 whether hint16's SASS is base's, B4 the tree, leaf,
+   level and stub ms, the 1, 6 and 12-round sweep, the marginal ms a
+   round and the level kernel's "speed of light"; then the phase's
+   seconds and launches;
 3. FibonacciStark(1000) proved on the card, byte-identical to the port's
    host prover (no backend) on the same seeded randomness, its trace
    interpolated on the card (the host interpolation raises while the card
@@ -54,8 +72,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    host prover's;
 4. FibonacciStark(65536) proved on the card over its 2^20-point FRI
    domain, its trace interpolated on the card, with every launch counter
-   but R1's > 0 for that prove, the level kernel launched only on levels
-   wider than ``SUBTREE_WIDTH`` and the subtrees kernel once a tree, the
+   but R1's and the probes' > 0 for that prove (theirs 0), the level
+   kernel launched only on levels wider than ``SUBTREE_WIDTH`` and the
+   subtrees kernel once a tree, the
    prefix product once a call at the sizes of ``PROVE_PREFIX_CALLS``, every
    NTT size it ran among those phase 2 checked (a line gives each size's
    launches beside its phase-2 times), and at least 2 FRI rounds fused
@@ -68,21 +87,29 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 5. RescueChainStark(4096) on the card (114,688 rows, 2^20-point FRI
    domain): its AIR built once (the time on a line of its own), the host
    library's hash chain asserted as the witness's source, a cold and a
-   warm prove with their stages, every kernel but R1 launched
-   (counts set to 0 just before the cold prove, read just after), its K8
-   calls and NTT sizes checked as in phase 4, peak device memory, the
+   warm prove with their stages, every kernel but R1 and the probes
+   launched (counts set to 0 just before the cold prove, read just
+   after; the probes' 0), its K8 calls and NTT sizes checked as in
+   phase 4, peak device memory, the
    proof accepted by the port's host verifier and a wrong claim rejected,
    and each kernel's device time in that prove;
 6. a JSON line of the kernels (``launches``: the fib-2^16 prove's, R1's
-   in prove_batch; ``chain_launches`` and ``chain_prove_ms``: the chain
-   prove's), then the last line {"ok": true, "device": {...}}.
+   in prove_batch, the probes' in phase 2b; ``chain_launches`` and
+   ``chain_prove_ms``: the chain prove's; the probes' prove times null;
+   ``library_ms`` the stub's library call, else null;
+   ``function_bound_ms`` B2's bound for the three chains of the field
+   product, else null),
+   then the last line {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes over the memory rate and its
 warp instructions (counted in the SASS for this run's shapes) over the
 issue and pipe rates of the card's SMs at their top clock.  K7-K10 and
 R1 count field products, each priced at the instructions of one product
-in K7's SASS: the fewest an element needs for K7-K10, the 9,180 of R1's
-chain an instance for R1.
+in K7's SASS: the fewest an element needs for K7-K10; for R1 the fewest
+products x^``RESCUE_ALPHA_INV`` needs (131 an inverse S-box, 7,398 a
+permutation: ``rescue_products``).  The probe kernels are straight-line
+code: each is bound by its whole SASS a thread times its warps; B3's base
+and hint16, which compute B2's function, also by B2's.
 
 ``--times DIR`` times the NTT passes at every size, the Fiat-Shamir round
 at the cascade's 8 bodies, the middle levels of the prove's trees (2^13
@@ -167,6 +194,22 @@ RESCUE_MAIN = 4096
 INV_CHUNK = 2048
 FIELD_EDGES = (INV_CHUNK - 1, INV_CHUNK, INV_CHUNK + 1, (1 << 20) - 1, (1 << 20) + 1)
 ZERO_SIZES = (INV_CHUNK + 1, (1 << 20) + 1)
+# the chain probes that compute the field product a * t^10 * 2^-1280: B2
+# (``fe_mul``) and B3's base and hint16 (the TPU's 16-bit CIOS)
+PROBE_FIELD_PRODUCT = ("probe_mont_chain", "probe_mont16_chain/base", "probe_mont16_chain/hint16")
+
+
+def probe_tables(cuda_probes) -> dict:
+    """Probe kernel (``kernels.PROBES``) -> (the part of its mangled name
+    in the SASS, the TPU probe it replaces), B3's modes and B4's rounds
+    numbered as ``cuda_probes`` numbers them."""
+    mode = {f"probe_mont16_chain/{m}": (f"probe_mont16_chainILi{i}E", "benches/mont_mul_experiments.py:115")
+            for m, i in cuda_probes.MODES.items()}
+    rounds = {f"probe_level_rounds/{r}": (f"level_kernelILi{r}E", "benches/merkle_roofline.py:97")
+              for r in cuda_probes.PROBE_ROUNDS}
+    return {"probe_mont13_chain": ("probe_mont13_chain", "benches/lazy_limb_experiment.py:144"),
+            "probe_mont_chain": ("probe_mont_chain", "benches/quick_pallas_timing.py:64"), **mode,
+            "probe_level_stub": ("probe_level_stub", "benches/merkle_roofline.py:97"), **rounds}
 
 
 def field_operands(limbs, field, params, n: int, dev):
@@ -432,8 +475,9 @@ def main() -> int:
     from stark_tpu_torch.stark import Stark
 
     dev = torch.device("cuda")
-    # the kernels of the proving pipeline (the fib and chain paths); R1 runs on prove_batch's
-    pipeline = [k for k in kernels.LAUNCHES if k != "rescue_permutation"]
+    # the kernels of the proving pipeline (the fib and chain paths); R1 runs
+    # on prove_batch's, the probes on their own (phase 2b)
+    pipeline = [k for k in kernels.LAUNCHES if k != "rescue_permutation" and k not in kernels.PROBES]
 
     # -- 1. environment ------------------------------------------------------
     nvcc_line = subprocess.run([kernels._nvcc(), "--version"], capture_output=True, text=True, check=True)
@@ -501,7 +545,7 @@ def main() -> int:
     top_parent = max(sass.loops(sass.find(funcs, "top_kernel")), key=lambda b: b.counts.issue)
     round_loop = keccak_round(sass, funcs)
     per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernel")),
-                "merkle_level": sass.straight_line(sass.find(funcs, "level_kernel")),
+                "merkle_level": sass.straight_line(sass.find(funcs, "level_kernelILi12E")),
                 "merkle_top": top_parent.counts,  # one parent
                 "fri_fold": sass.straight_line(sass.find(funcs, "fold_kernel")),
                 "keccak_round": round_loop.counts}
@@ -895,6 +939,86 @@ def main() -> int:
         bound_ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_bound.items()},
         plain_ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_plain_ms.items()})
 
+    # -- 2b. the TPU timing probes B1-B4 through their entry points ------------
+    from stark_tpu_torch.benches import lazy_limb_experiment, merkle_roofline, mont_mul_experiments, quick_timing
+    from stark_tpu_torch.ops import cuda_probes
+
+    kernels.reset_launch_counts()
+    runs, probe_s = {}, {}
+    for name, bench in (("b1", lazy_limb_experiment), ("b2", quick_timing), ("b3", mont_mul_experiments),
+                        ("b4", merkle_roofline)):
+        t0 = time.perf_counter()
+        runs[name] = bench.run(dev)
+        probe_s[name] = time.perf_counter() - t0
+    probe_launches = {k: kernels.LAUNCHES[k] for k in kernels.PROBES}
+    b1, b2, b3, b4 = runs.values()
+    unlaunched = [k for k, c in probe_launches.items() if c <= 0]
+    if unlaunched:
+        raise AssertionError(f"the probes' entry points never launched {unlaunched}: {probe_launches}")
+    # each probe kernel's whole SASS a thread, times its warps
+    probes = probe_tables(cuda_probes)
+    probe_ins = {k: sass.find(funcs, part) for k, (part, _) in probes.items()}
+    probe_counts = {k: sass.straight_line(ins) for k, ins in probe_ins.items()}
+    hint16_same = ([sass.opcode(i) for _, i in probe_ins["probe_mont16_chain/base"]]
+                   == [sass.opcode(i) for _, i in probe_ins["probe_mont16_chain/hint16"]])
+    # elements; the bytes of one limb plane of t, (rows, 128) int32
+    n_el, t_bytes = b1["n"], 4 * lazy_limb_experiment.ROWS * lazy_limb_experiment.BLOCK
+    w = b4["n_leaves"]
+    chain_runs = {"probe_mont13_chain": (b1["kernel_ms"], b1["plain_ms"], 10),
+                  "probe_mont_chain": (b2["kernel_ms"], b2["plain_ms"], 8),
+                  **{f"probe_mont16_chain/{m}": (v["kernel_ms"], v["plain_ms"], 8) for m, v in b3["modes"].items()}}
+    for name, (ms, plain_ms, planes) in chain_runs.items():  # x read, the result written, t read once
+        report[name] = (ms, plain_ms, *bound(planes * (8 * n_el + t_bytes), probe_counts[name] * (n_el / 32)))
+    level_runs = {"probe_level_stub": (b4["stub_ms"], b4["stub_plain_ms"]),
+                  **{f"probe_level_rounds/{r}": (b4["round_sweep_ms"][r], b4["round_plain_ms"][r])
+                     for r in cuda_probes.PROBE_ROUNDS}}
+    for name, (ms, plain_ms) in level_runs.items():  # the level in, its parents out
+        report[name] = (ms, plain_ms, *bound(48 * w, probe_counts[name] * (w / 2 / 32)))
+    # the three chains of the field product are one function: each is also
+    # bound by B2's SASS, the fewest instructions it is known to take here
+    function_bound = {k: report["probe_mont_chain"][2] for k in PROBE_FIELD_PRODUCT}
+    errs.update({"probe_mont13_chain": b1["max_abs_err"], "probe_mont_chain": b2["max_abs_err"],
+                 **{f"probe_mont16_chain/{m}": b3["max_abs_err"][m] for m in b3["modes"]},
+                 "probe_level_stub": b4["max_abs_err"]["stub"],
+                 **{f"probe_level_rounds/{r}": b4["max_abs_err"][f"rounds_{r}"] for r in cuda_probes.PROBE_ROUNDS}})
+    # the stub's function in one library call, timed here alone (the port never calls it)
+    _, stub_level = merkle_roofline.inputs(dev)
+    library_stub = torch.bitwise_xor(stub_level[:, 0::2], stub_level[:, 1::2])
+    if not torch.equal(library_stub, cuda_probes.level_stub(stub_level)):
+        raise AssertionError("the library's XOR of each parent's children disagrees with the stub kernel")
+    library_ms = {"probe_level_stub": device_ms(lambda: torch.bitwise_xor(stub_level[:, 0::2], stub_level[:, 1::2]))}
+    del stub_level, library_stub
+
+    def probe_ms(name: str) -> dict:
+        ms = dict(zip(("kernel", "plain", "bound", "bound_by"), report[name]))
+        if name in function_bound:
+            ms["function_bound"] = function_bound[name]
+        if name in library_ms:
+            ms["library"] = library_ms[name]
+        return ms
+
+    say("probe_b1_lazy13", n=n_el, muls=b1["muls"], ms=probe_ms("probe_mont13_chain"),
+        ms_per_mul=b1["ms_per_mul"], mmul_per_s=b1["mmul_per_s"], pairs_exact=b1["pairs_exact"],
+        int_checked=b1["int_checked"], warp_instructions_per_thread=probe_counts["probe_mont13_chain"]._asdict())
+    say("probe_b2_product", n=n_el, muls=b2["muls"], ms=probe_ms("probe_mont_chain"), ms_per_mul=b2["ms_per_mul"],
+        mmul_per_s=b2["mmul_per_s"], int_checked=b2["int_checked"], ntt_ms=b2["ntt_ms"], ntt_parity=b2["ntt_parity"],
+        warp_instructions_per_thread=probe_counts["probe_mont_chain"]._asdict(),
+        warp_instructions_per_product_in_k7=product._asdict())
+    say("probe_b3_variants", n=n_el, muls=b3["muls"], hint16_equals_base=b3["hint16_equals_base"],
+        hint16_same_sass_as_base=hint16_same, max_abs_err=b3["max_abs_err"],
+        modes={m: {**probe_ms(f"probe_mont16_chain/{m}"), "ms_per_mul": v["ms_per_mul"], "mmul_per_s": v["mmul_per_s"],
+                   "warp_instructions_per_thread": probe_counts[f"probe_mont16_chain/{m}"]._asdict()}
+               for m, v in b3["modes"].items()})
+    say("probe_b4_merkle_roofline", n_leaves=w, max_abs_err=b4["max_abs_err"], tree_ms=b4["tree_ms"],
+        leaf_ms=b4["leaf_ms"], level_ms=b4["level_ms"], stub=probe_ms("probe_level_stub"),
+        rounds={r: probe_ms(f"probe_level_rounds/{r}") for r in cuda_probes.PROBE_ROUNDS},
+        round_sweep_ms=b4["round_sweep_ms"], marginal_ms_per_round=b4["marginal_ms_per_round"],
+        kernel_sol_ms=b4["kernel_sol_ms"], kernel_vs_sol=b4["kernel_vs_sol"],
+        warp_instructions_per_thread={**{r: probe_counts[f"probe_level_rounds/{r}"]._asdict()
+                                         for r in cuda_probes.PROBE_ROUNDS},
+                                      12: per_unit["merkle_level"]._asdict()})
+    say("probes", seconds=probe_s, launches=probe_launches)
+
     # the device proves must interpolate their traces on the card: the host
     # interpolation raises while they run
     host_interpolation = Stark._interpolate_trace
@@ -974,6 +1098,8 @@ def main() -> int:
     missing = [k for k in pipeline if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the 2^16-step prove never launched {missing}: {launches}")
+    if any(launches[k] for k in kernels.PROBES):
+        raise AssertionError(f"the 2^16-step prove launched a probe kernel: {launches}")
     if fused < 2:
         raise AssertionError(f"the 2^16-step prove fused {fused} FRI rounds, expected >= 2")
     unchecked = sorted(set(ntt_launches) - set(ntt_sizes))
@@ -1143,6 +1269,8 @@ def main() -> int:
     missing = [k for k in pipeline if chain_launches[k] <= 0]
     if missing:
         raise AssertionError(f"the chain prove never launched {missing}: {chain_launches}")
+    if any(chain_launches[k] for k in kernels.PROBES):
+        raise AssertionError(f"the chain prove launched a probe kernel: {chain_launches}")
     if sorted(set(chain_ntt) - set(ntt_sizes)):
         raise AssertionError(f"the chain prove ran NTT passes at sizes phase 2 did not check: {chain_ntt}")
     if chain_prefix != CHAIN_PREFIX_CALLS:
@@ -1183,15 +1311,24 @@ def main() -> int:
         "geometric_table": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/device_prover.py:226"),
         "mont_binary": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/field_ops.py:244"),
         "rescue_permutation": ("stark_tpu_torch/csrc/rescue.cu", "stark_tpu/ops/rescue.py:92"),
+        **{name: ("stark_tpu_torch/csrc/probes.cu", rep) for name, (_, rep) in probes.items()},
     }
-    # launches on each kernel's own path: the fib-2^16 prove, and prove_batch's for R1
-    path_launches = dict(launches, rescue_permutation=batch_launches["rescue_permutation"])
+    # launches on each kernel's own path: the fib-2^16 prove, prove_batch's
+    # for R1, the probes' entry points (phase 2b) for theirs
+    path_launches = dict(launches, rescue_permutation=batch_launches["rescue_permutation"], **probe_launches)
+
+    def on_prove(name: str, value):
+        """A prove's time of a kernel; None for a probe, on no prove's path."""
+        return None if name in kernels.PROBES else value
+
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": path_launches[name],
          "max_abs_err": errs[name], "ms": report[name][0], "plain_ms": report[name][1],
-         "bound_ms": report[name][2], "bound_by": report[name][3], "library_ms": None, "prove_ms": prove_ms[name],
-         "prove_bound_ms": prove_bound_ms[name], "chain_launches": chain_launches[name],
-         "chain_prove_ms": chain_ms[name], "chain_prove_bound_ms": chain_bound_ms[name]}
+         "bound_ms": report[name][2], "bound_by": report[name][3], "library_ms": library_ms.get(name),
+         "function_bound_ms": function_bound.get(name),
+         "prove_ms": on_prove(name, prove_ms[name]), "prove_bound_ms": on_prove(name, prove_bound_ms[name]),
+         "chain_launches": chain_launches[name], "chain_prove_ms": on_prove(name, chain_ms[name]),
+         "chain_prove_bound_ms": on_prove(name, chain_bound_ms[name])}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -81,19 +81,24 @@ def _g(v, a, b, c, d, x, y) -> None:
     v[b] = _rotr(v[b] ^ v[c], 63)
 
 
-def blake2b256_single_block(m: Sequence, t) -> torch.Tensor:
+def blake2b256_single_block(m: Sequence, t, rounds: int = 12) -> torch.Tensor:
     """Batched final-block Blake2b-256.
 
     ``m``: 16 message words, each an ``int64`` tensor of u64 bits or the
     int 0; ``t``: the byte count, an ``int64`` tensor or an int.  Returns
-    the (8, w) ``int32`` digest words (lo/hi of h[0..3])."""
+    the (8, w) ``int32`` digest words (lo/hi of h[0..3]).  ``rounds`` < 12
+    cuts the compress short, as the JAX function's argument does: not a
+    valid hash, only the Merkle roofline probe's
+    (:mod:`stark_tpu_torch.benches.merkle_roofline`)."""
+    if not 1 <= rounds <= 12:
+        raise ValueError(f"rounds must be in [1, 12], got {rounds}")
     like = next(w for w in m if isinstance(w, torch.Tensor))
     m = [w if isinstance(w, torch.Tensor) else torch.zeros_like(like) for w in m]
     h = [_s64(_H0)] + [_s64(w) for w in _IV[1:]]
     v = [torch.full_like(like, x) for x in h + [_s64(w) for w in _IV]]
     v[12] = v[12] ^ t
     v[14] = ~v[14]
-    for r in range(12):
+    for r in range(rounds):
         s = _SIGMA[r % 10]
         _g(v, 0, 4, 8, 12, m[s[0]], m[s[1]])
         _g(v, 1, 5, 9, 13, m[s[2]], m[s[3]])
@@ -126,13 +131,14 @@ def leaf_digests_from_digits(d: torch.Tensor) -> torch.Tensor:
     return blake2b256_single_block(m, 12 + 4 * k)
 
 
-def level_hash(level: torch.Tensor) -> torch.Tensor:
+def level_hash(level: torch.Tensor, rounds: int = 12) -> torch.Tensor:
     """One interior level: (8, w) child digests -> (8, w/2) parents
-    H(left || right), one 64-byte block each."""
+    H(left || right), one 64-byte block each (a compress of ``rounds``
+    rounds: see :func:`blake2b256_single_block`)."""
     left, right = level[:, 0::2], level[:, 1::2]
     m = [_u64(left[2 * j], left[2 * j + 1]) for j in range(4)]
     m += [_u64(right[2 * j], right[2 * j + 1]) for j in range(4)]
-    return blake2b256_single_block(m + [0] * 8, 64)
+    return blake2b256_single_block(m + [0] * 8, 64, rounds)
 
 
 def merkle_subtrees_plain(level: torch.Tensor, depth: int) -> torch.Tensor:

@@ -30,7 +30,8 @@ from typing import Dict
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("field.cuh", "ntt.cu", "merkle.cu", "fold.cu", "fs.cu", "fieldvec.cu", "rescue.cu")
+_SOURCES = ("field.cuh", "blake2b.cuh", "ntt.cu", "merkle.cu", "fold.cu", "fs.cu", "fieldvec.cu", "rescue.cu",
+            "probes.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stark_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,18 +59,30 @@ _SIGNATURES = {
     "stark_geometric_step_bits": [_I64],
     "stark_mont_binary": [_P, _P, _P, _I64, _I, _I, _I, _P],
     "stark_rescue_permutation": [_P, _P, _P, _I64, _I, _P],
+    "stark_probe_mont13_chain": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "stark_probe_mont_chain": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "stark_probe_mont16_chain": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
+    "stark_probe_level_stub": [_P, _P, _I64, _P],
+    "stark_probe_level_rounds": [_P, _P, _I64, _I, _P],
 }
 
+#: the timing probes' kernels (``csrc/probes.cu``, :mod:`.cuda_probes`),
+#: on no path of a prove: B1, B2, B3 in its three modes, B4's stub and its
+#: compress cut to 1 and 6 rounds (at 12 B4 runs ``merkle_level``)
+PROBES = ("probe_mont13_chain", "probe_mont_chain", "probe_mont16_chain/base", "probe_mont16_chain/hint16",
+          "probe_mont16_chain/xor", "probe_level_stub", "probe_level_rounds/1", "probe_level_rounds/6")
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
     "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_subtrees": 0, "merkle_top": 0,
     "fri_fold": 0, "fs_round": 0, "mont_inv": 0, "prefix_mul": 0, "geometric_table": 0, "mont_binary": 0,
     "rescue_permutation": 0,
+    **{name: 0 for name in PROBES},
 }
 #: size of the launch -> kernel name -> launches since the last reset: the
 #: transform's points (NTT passes), the leaves or the input level's width
-#: (Merkle kernels), the codeword's length (fold), the body's bytes (fs_round),
-#: the elements (field kernels) or the instances (rescue_permutation)
+#: (Merkle kernels and B4), the codeword's length (fold), the body's bytes
+#: (fs_round), the elements (field kernels, B1-B3) or the instances
+#: (rescue_permutation)
 LAUNCHES_BY_SIZE: Dict[int, Dict[str, int]] = {}
 
 _lock = threading.Lock()

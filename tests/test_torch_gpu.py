@@ -231,9 +231,10 @@ def test_fibonacci_proof_on_the_card_equals_host(cuda):
     assert model.stark.fri.last_fused_rounds == 3
     # every tree (8192 leaves at most) is narrower than SUBTREE_WIDTH, so
     # the level kernel's levels go to the subtrees kernel; the Rescue
-    # permutation is not on a prove's path
-    assert kernels.LAUNCHES["merkle_level"] == 0 and kernels.LAUNCHES["rescue_permutation"] == 0, kernels.LAUNCHES
-    assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k not in ("merkle_level", "rescue_permutation")), \
+    # permutation and the timing probes are not on a prove's path
+    off_path = ("rescue_permutation",) + kernels.PROBES
+    assert kernels.LAUNCHES["merkle_level"] == 0 and all(kernels.LAUNCHES[k] == 0 for k in off_path), kernels.LAUNCHES
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k not in ("merkle_level",) + off_path), \
         kernels.LAUNCHES
     assert FibonacciStark(1000, device=None).verify(a, b, result, proof)
 
@@ -512,3 +513,64 @@ def test_small_models_through_the_device_pipeline_on_the_card_equal_host(cuda, m
         out, proof = card.prove(x)
         assert (out, proof) == host.prove(x)
         assert host.verify(out, proof) and not host.verify(out + FieldElement(1), proof)
+
+
+# the timing probes B1-B4 (csrc/probes.cu): a small shape, a ragged one (a
+# row not a multiple of the 256-thread block, t's 128 columns reused past
+# it) and the probes' 2^20, each against its plain version
+PROBE_SHAPES = [(2, 256), (3, 200), (1024, 1024)]
+
+
+def _probe_operands(rows: int, cols: int, limbs: int, bits: int, seed: int, device):
+    """x (limbs, rows, cols) below p and t (limbs, rows, 128), its limbs
+    over their full width."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << bits, (limbs, rows, cols), dtype=np.uint32)
+    x[limbs - 1] = rng.integers(0, P >> (bits * (limbs - 1)), (rows, cols), dtype=np.uint32)
+    t = rng.integers(0, 1 << bits, (limbs, rows, 128), dtype=np.uint32)
+    return (torch.from_numpy(x.view(np.int32)).to(device), torch.from_numpy(t.view(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("rows, cols", PROBE_SHAPES)
+def test_probe_mont13_chain_matches_plain(cuda, rows, cols):
+    from stark_tpu_torch.ops import cuda_probes
+
+    x, t = _probe_operands(rows, cols, 10, 13, rows * cols, cuda)
+    got = _launched("probe_mont13_chain", lambda: cuda_probes.mont13_chain(x, t))
+    assert torch.equal(got, cuda_probes.mont13_chain_plain(x, t))
+
+
+@pytest.mark.parametrize("rows, cols", PROBE_SHAPES)
+def test_probe_mont_chain_matches_plain(cuda, rows, cols):
+    from stark_tpu_torch.ops import cuda_probes
+
+    x, t = _probe_operands(rows, cols, 8, 16, rows * cols, cuda)
+    got = _launched("probe_mont_chain", lambda: cuda_probes.mont_chain(x, t))
+    assert torch.equal(got, cuda_probes.mont_chain_plain(x, t))
+
+
+@pytest.mark.parametrize("mode", ["base", "hint16", "xor"])
+@pytest.mark.parametrize("rows, cols", PROBE_SHAPES)
+def test_probe_mont16_chain_matches_plain(cuda, rows, cols, mode):
+    from stark_tpu_torch.ops import cuda_probes
+
+    x, t = _probe_operands(rows, cols, 8, 16, rows * cols, cuda)
+    got = _launched(f"probe_mont16_chain/{mode}", lambda: cuda_probes.mont16_chain(x, t, mode))
+    assert torch.equal(got, cuda_probes.mont16_chain_plain(x, t, mode))
+    if mode != "xor":  # the TPU's product is the field product
+        assert torch.equal(got, cuda_probes.mont_chain(x, t))
+
+
+@pytest.mark.parametrize("w", [2, 2002, 1 << 20])
+def test_probe_level_kernels_match_plain(cuda, w):
+    from stark_tpu_torch.ops import cuda_merkle, cuda_probes
+
+    level = torch.from_numpy(np.random.default_rng(w).integers(0, 1 << 32, (8, w), dtype=np.uint32).view(np.int32))
+    level = level.to(cuda)
+    stub = _launched("probe_level_stub", lambda: cuda_probes.level_stub(level))
+    assert torch.equal(stub, cuda_probes.level_stub_plain(level))
+    for r in cuda_probes.ROUNDS:  # 12 rounds: the level kernel itself
+        kernel = f"probe_level_rounds/{r}" if r in cuda_probes.PROBE_ROUNDS else "merkle_level"
+        got = _launched(kernel, lambda: cuda_probes.level_rounds(level, r))
+        assert torch.equal(got, cuda_probes.level_rounds_plain(level, r))
+    assert torch.equal(got, cuda_merkle.merkle_level(level))
