@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # the whole check, below
     python3 chip_smoke.py --times DIR   # NTT, Fiat-Shamir, Merkle, K7, K8 and K9 times of the checkout at DIR
+    python3 chip_smoke.py --proves DIR  # warm fib-2^16 proves of the checkout at DIR, the collector paused
 
 Phases (one line each; any failure raises and the exit code is non-zero):
 
@@ -15,8 +16,13 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    bit-exact: the four-step NTT passes (forward, inverse and coset
    transforms at every size from 2^13 to 2^20 points, each timed, and
    a line of their launch shape, registers and resident blocks per SM
-   at 2^17 and 2^20), the Blake2b-256 leaf and level kernels at 2^20
-   (the level kernel timed at every width of a 2^20 tree), the top
+   at 2^17 and 2^20; untimed, the forward and coset-inverse transforms
+   from 2^6 to 2^12, which a short trace's device interpolation runs on
+   the card), the Blake2b-256 leaf and level kernels at 2^20 (the leaf
+   kernel on digits and on Montgomery limbs, as a prove runs it; the level
+   kernel timed at every width of a 2^20 tree), the digit conversion
+   (``mont_digits``) at ``DIGIT_SIZES`` against its plain version and the
+   digits, each timed, the top
    kernel at every width from 2 to 2^13 (timed from 2^9 to 2^13 against
    the chain of level launches it replaces, the split at ``TOP_WIDTH``
    among them), the subtrees kernel from every width 2^10 to 2^19 down to
@@ -44,6 +50,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    instances also against the host ``RescuePrime.hash`` / ``trace``, every
    inverse S-box output of a 4096-instance trace cubed back to its input,
    each mode timed at 4096 and 2^18 instances (``RESCUE_TIMED``);
+   the combination kernel (K11) with fib's AIR structure at 2^13 and 2^20
+   against its plain version (the program's interpreter), timed at 2^20,
+   its bound from the distinct codewords it reads and the products a point
+   its program needs;
 2b. the TPU timing probes B1-B4 through their entry points
    (``stark_tpu_torch.benches``: ``lazy_limb_experiment``, ``quick_timing``,
    ``mont_mul_experiments``, ``merkle_roofline``, each ``run``), launch
@@ -69,7 +79,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    witnesses from R1, whose counter must move in that run), and
    MimcStark(30) and RescueChainStark(4) through the device pipeline (its
    floor lowered to 512 points), each byte-identical to the
-   host prover's;
+   host prover's; during each of these proves every arithmetic function
+   of ``ops/field_ops.py`` counts its calls on CUDA tensors
+   (``ops/guard.py``), and any such call fails the phase;
 4. FibonacciStark(65536) proved on the card over its 2^20-point FRI
    domain, its trace interpolated on the card, with every launch counter
    but R1's and the probes' > 0 for that prove (theirs 0), the level
@@ -83,7 +95,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    in that prove: its launches at each size times its time at that size
    (timed in phase 2, or now for sizes phase 2 did not time), the level
    kernel's split into wide and middle levels, and the middle levels as
-   the chain of level launches the subtrees kernel replaces;
+   the chain of level launches the subtrees kernel replaces; the cold and
+   warm proves call no ``field_ops`` arithmetic on a CUDA tensor (the
+   guard of phase 3), launch the combination once each and print its
+   sub-regions (wall seconds, device ms), and the prove's AIR structure is
+   the one phase 2 checked;
 5. RescueChainStark(4096) on the card (114,688 rows, 2^20-point FRI
    domain): its AIR built once (the time on a line of its own), the host
    library's hash chain asserted as the witness's source, a cold and a
@@ -92,8 +108,12 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    after; the probes' 0), its K8 calls and NTT sizes checked as in
    phase 4, peak device memory, the
    proof accepted by the port's host verifier and a wrong claim rejected,
-   and each kernel's device time in that prove;
-6. a JSON line of the kernels (``launches``: the fib-2^16 prove's, R1's
+   the guard and the one combination launch as in phase 4, the
+   combination's cold and warm split, K11 with the chain's own structure
+   and group codewords at 2^13 and 2^20 against its plain version (timed at
+   2^20), and each kernel's device time in that prove;
+6. a JSON line of the kernels, K11 (``combination``) and ``mont_digits``
+   among them (``launches``: the fib-2^16 prove's, R1's
    in prove_batch, the probes' in phase 2b; ``chain_launches`` and
    ``chain_prove_ms``: the chain prove's; the probes' prove times null;
    ``library_ms`` the stub's library call, else null;
@@ -105,7 +125,8 @@ A kernel's bound is the larger of its bytes over the memory rate and its
 warp instructions (counted in the SASS for this run's shapes) over the
 issue and pipe rates of the card's SMs at their top clock.  K7-K10 and
 R1 count field products, each priced at the instructions of one product
-in K7's SASS: the fewest an element needs for K7-K10; for R1 the fewest
+in K7's SASS: the fewest an element needs for K7-K10; for K11 the products
+a point of its program (``program_products``); for R1 the fewest
 products x^``RESCUE_ALPHA_INV`` needs (131 an inverse S-box, 7,398 a
 permutation: ``rescue_products``).  The probe kernels are straight-line
 code: each is bound by its whole SASS a thread times its warps; B3's base
@@ -121,6 +142,13 @@ paired runs against another commit unpacked with ``git archive``) on
 this checkout's inputs, timers and plain versions, one JSON line each,
 after a line of the local-memory instructions, the Keccak round loop and
 the price of a field product in DIR's library.
+
+``--proves DIR`` proves FibonacciStark(65536) once cold and ``PROVE_RUNS``
+times warm with the checkout at DIR, each warm prove after
+``gc.collect()`` with Python's collector paused while it runs (otherwise
+a collection of the whole heap, 0.2-0.3 s, lands in one prove or
+another), and prints the wall seconds of each and the median of each
+stage; for paired runs of two trees in one call.
 
 The script imports nothing of JAX or of the ``stark_tpu`` package.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -194,6 +222,17 @@ RESCUE_MAIN = 4096
 INV_CHUNK = 2048
 FIELD_EDGES = (INV_CHUNK - 1, INV_CHUNK, INV_CHUNK + 1, (1 << 20) - 1, (1 << 20) + 1)
 ZERO_SIZES = (INV_CHUNK + 1, (1 << 20) + 1)
+# the four-step transforms the device trace interpolation of a short trace
+# runs on the card (fib-1000, chain-4, MiMC-30): checked, untimed, in phase 2
+SMALL_NTT_LOGNS = tuple(range(6, 13))
+# FibonacciStark's AIR structure (per constraint: (tail over a, b, a', b';
+# group codeword)), the combination kernel's program in phase 2 (phase 4
+# asserts it is the prove's)
+FIB_STRUCTURE = ((((0, 0, 1, 0), 0), ((1, 0, 0, 0), 1), ((0, 1, 0, 0), 2)),
+                 (((0, 0, 0, 1), 3), ((1, 0, 0, 0), 4)))
+# the digit conversion's sizes checked in phase 2: one value, a gather, odd
+# and even around the FRI domain
+DIGIT_SIZES = (1, 37, (1 << 20) - 1, 1 << 20)
 # the chain probes that compute the field product a * t^10 * 2^-1280: B2
 # (``fe_mul``) and B3's base and hint16 (the TPU's 16-bit CIOS)
 PROBE_FIELD_PRODUCT = ("probe_mont_chain", "probe_mont16_chain/base", "probe_mont16_chain/hint16")
@@ -223,6 +262,57 @@ def field_operands(limbs, field, params, n: int, dev):
     root = field.FieldElement.primitive_nth_root(1 << 21).value
     bases = limbs.mont_tensor([pow(root, 1 << k, params.P) for k in range((n - 1).bit_length())], dev)
     return a, b, limbs.mont_tensor([params.GENERATOR], dev), bases
+
+
+def combination_operands(limbs, structure, groups, n: int, seed: int, dev, num_bq: int = 2):
+    """Seeded (8, n) Montgomery operands of the combination kernel, in the
+    order of ``cuda_combination.combination`` after the program: 2 trace
+    codewords, ``groups`` (a count: seeded; else the codewords), one
+    zeroifier inverse and one shift table shared by every constraint (as a
+    prove's one exemption set and one degree bound share them), randomizer,
+    ``num_bq`` boundary quotients sharing one shift table, weights."""
+    cws = iter(range(seed, seed + 10_000))
+
+    def col():
+        return limbs.from_numpy(limbs.seeded_mont(n, next(cws)), dev)
+
+    k = len(structure)
+    group_cws = [col() for _ in range(groups)] if isinstance(groups, int) else list(groups)
+    tz, tq_tab, bq_tab = col(), col(), col()
+    weights = limbs.from_numpy(limbs.seeded_mont(1 + 2 * (k + num_bq), seed), dev)
+    return ([col(), col()], group_cws, [tz] * k, col(), [col() for _ in range(num_bq)], weights, [tq_tab] * k,
+            [bq_tab] * num_bq)
+
+
+def program_products(program) -> int:
+    """Field products a point of an encoded combination: the powers (a
+    square, and a product where the exponent is odd), each term's factors,
+    and per quotient its zeroifier inverse (transition quotients only), its
+    weight, its shift and that shift's weight; the randomizer's weight."""
+    powers = sum(1 + (mul >= 0) for base, mul in program.powers if base >= 0)
+    return (powers + sum(len(f) for _, f in program.terms) + 4 * program.n_constraints + 3 * program.n_bq + 1)
+
+
+def combination_bytes(args) -> int:
+    """Bytes the combination must move: each distinct input codeword read
+    once, the weights, the combination and each transition quotient
+    written once."""
+    trace, groups, tz, rand, bq, weights, tq_tabs, bq_tabs = args
+    inputs = {t.data_ptr(): t for t in [*trace, *groups, *tz, rand, *bq, *tq_tabs, *bq_tabs]}
+    n = int(rand.shape[1])
+    return LIMB_BYTES * (n * (len(inputs) + 1 + len(tz)) + int(weights.shape[1]))
+
+
+def combination_split(profile) -> dict:
+    """The combination stage of a prove and its sub-regions
+    (``Stark._combination_device``): wall seconds, and for the sub-regions
+    the device ms between the CUDA events around each."""
+    device = profile.device_totals()
+    split = {"stage_s": profile.totals.get("combination")}
+    for name, wall in profile.totals.items():
+        if name.startswith("combination/"):
+            split[name.split("/", 1)[1]] = {"wall_s": wall, "device_ms": device.get(name)}
+    return split
 
 
 def zero_patterns(a) -> dict:
@@ -444,6 +534,57 @@ def times_of(tree: str) -> int:
     return 0
 
 
+# warm proves a --proves run times
+PROVE_RUNS = 5
+
+
+def proves_of(tree: str) -> int:
+    """``--proves DIR``: the cold and ``PROVE_RUNS`` warm FibonacciStark(65536)
+    proves of the checkout at ``tree``, on the card, the collector paused
+    in each warm prove (see the module docstring)."""
+    import gc
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch finds no CUDA device: this check needs one card")
+    sys.path.insert(0, os.path.abspath(tree))
+    from stark_tpu_torch.field import FieldElement
+    from stark_tpu_torch.models import fibonacci
+    from stark_tpu_torch.rng import DeterministicRandom
+
+    if not os.path.abspath(fibonacci.__file__).startswith(os.path.abspath(tree) + os.sep):
+        raise RuntimeError(f"imported {fibonacci.__file__}, not the checkout at {tree}")
+    model = fibonacci.FibonacciStark(65536, rng=DeterministicRandom(SEED))
+    a, b = FieldElement(3), FieldElement(7)
+    t0 = time.perf_counter()
+    model.prove(a, b)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    walls, stages = [], []
+    for _ in range(PROVE_RUNS):
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            model.prove(a, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        finally:
+            gc.enable()
+        stages.append(dict(model.stark.last_profile.totals))
+    names = [k for k in stages[0] if "/" not in k or k.startswith("combination/")]
+    medians = {k: statistics.median(s.get(k, 0.0) for s in stages) for k in names}
+    say("warm_proves", tree=tree, cold_seconds=cold_s, warm_seconds=walls, warm_median=statistics.median(walls),
+        stages_median=medians,
+        unstaged_median=statistics.median(w - sum(v for k, v in s.items() if "/" not in k)
+                                          for w, s in zip(walls, stages)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
@@ -462,7 +603,8 @@ def main() -> int:
     from stark_tpu_torch.models.rescue_chain import RescueChainStark
     from stark_tpu_torch.models.rescue_stark import RescueStark
     from stark_tpu_torch.ntt import NTT
-    from stark_tpu_torch.ops import cuda_field, cuda_fold, cuda_fs, cuda_merkle, cuda_ntt, cuda_rescue, kernels
+    from stark_tpu_torch.ops import (cuda_combination, cuda_field, cuda_fold, cuda_fs, cuda_merkle, cuda_ntt,
+                                     cuda_rescue, guard, kernels)
     from stark_tpu_torch.ops import device_merkle as dm
     from stark_tpu_torch.ops import field_ops as fo
     from stark_tpu_torch.ops.device_fs import fs_round_plain
@@ -544,7 +686,11 @@ def main() -> int:
     product = product_price(sass, funcs)
     top_parent = max(sass.loops(sass.find(funcs, "top_kernel")), key=lambda b: b.counts.issue)
     round_loop = keccak_round(sass, funcs)
-    per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernel")),
+    # K4 as the prove runs it, on Montgomery limbs (the reduction in its
+    # loads); its digit form, and the conversion alone (mont_digits)
+    per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernelILb1E")),
+                "merkle_leaves_digits": sass.straight_line(sass.find(funcs, "leaf_kernelILb0E")),
+                "mont_digits": sass.straight_line(sass.find(funcs, "mont_digits_kernel")),
                 "merkle_level": sass.straight_line(sass.find(funcs, "level_kernelILi12E")),
                 "merkle_top": top_parent.counts,  # one parent
                 "fri_fold": sass.straight_line(sass.find(funcs, "fold_kernel")),
@@ -561,7 +707,11 @@ def main() -> int:
         or field kernel at its launch size (leaves, level width, codeword
         length, body bytes, elements); the NTT passes' are computed in
         phase 2."""
-        if name == "merkle_leaves":  # 4 digit words in, 8 digest words out a leaf
+        if name == "merkle_leaves":  # 8 Montgomery limbs in, 8 digest words out a leaf
+            return bound(64 * size, per_unit[name] * (size / 32))
+        if name == "merkle_leaves_digits":  # 4 digit words in, 8 digest words out a leaf
+            return bound(48 * size, per_unit[name] * (size / 32))
+        if name == "mont_digits":  # 8 Montgomery limbs in, 4 digit words out
             return bound(48 * size, per_unit[name] * (size / 32))
         if name == "merkle_level":  # two children in, one parent out
             return bound(48 * size, per_unit[name] * (size / 2 / 32))
@@ -645,6 +795,25 @@ def main() -> int:
             report.update({k: (v["kernel"], v["plain"], v["bound"], v["bound_by"]) for k, v in ntt_sizes[n].items()})
             errs.update(ntt_pass1=0, ntt_pass2=0)
         say("ntt_kernels", n=n, R=R, C=C, max_abs_err=ntt_errs, ms=ntt_sizes[n])
+    # the small transforms of a short trace's device interpolation (64 to
+    # 4096 points, R and C down to one cluster of 8), untimed
+    small_ntt_errs = {}
+    for logn in SMALL_NTT_LOGNS:
+        n = 1 << logn
+        plan = cuda_ntt.get_cuda_plan(n, dev)
+        x = from_numpy(seeded_mont(n, logn), dev).reshape(8, plan.R, plan.C)
+        for name, inverse, offset in (("forward", False, 1), ("coset_inverse", True, GENERATOR)):
+            w, tw_r, tw_c, row, col = plan.op_tables(inverse, offset)
+            pro = not inverse and row is not None
+            y = cuda_ntt.ntt_pass1(x, tw_r, w, row if pro else None, col if pro else None)
+            z = cuda_ntt.ntt_pass2(y, tw_c, row if inverse else None, col if inverse else None)
+            small_ntt_errs[f"2^{logn} {name}"] = (
+                max_abs_err(torch, y, cuda_ntt.ntt_pass1_plain(x, tw_r, w, row if pro else None, col if pro else None)),
+                max_abs_err(torch, z, cuda_ntt.ntt_pass2_plain(y, tw_c, row if inverse else None,
+                                                               col if inverse else None)))
+    if any(v != (0, 0) for v in small_ntt_errs.values()):
+        raise AssertionError(f"NTT kernels disagree with their plain versions at the small sizes: {small_ntt_errs}")
+    say("ntt_small_sizes", max_abs_err=small_ntt_errs)
     say("ntt_occupancy", **{f"2^{logn}": {
         "ntt_pass1": cuda_ntt.occupancy(logn // 2, logn - logn // 2, True, device=dev),
         "ntt_pass2": cuda_ntt.occupancy(logn - logn // 2, logn // 2, False, device=dev)} for logn in (17, 20)})
@@ -660,9 +829,29 @@ def main() -> int:
     errs["merkle_level"] = max_abs_err(torch, parents, dm.level_hash(leaves))
     if errs["merkle_leaves"] or errs["merkle_level"]:
         raise AssertionError(f"Merkle kernels disagree with their plain versions: {errs}")
-    report["merkle_leaves"] = (device_ms(lambda: cuda_merkle.merkle_leaves(d)),
-                               call_ms(lambda: dm.leaf_digests_from_digits(d)),
+    # K4 on the Montgomery codeword of the same values, as a prove's trees
+    # run it, and the digit conversion alone (mont_digits), at one value, a
+    # gather's size and around 2^20
+    mont = from_numpy(pack([v * R_MOD_P % P for v in vals]), dev)
+    leaves_mont = cuda_merkle.merkle_leaves_mont(mont)
+    errs["merkle_leaves"] = max(errs["merkle_leaves"], max_abs_err(torch, leaves_mont, leaves),
+                                max_abs_err(torch, leaves_mont, cuda_merkle.merkle_leaves_mont_plain(mont)))
+    digit_errs = {}
+    for k in DIGIT_SIZES:
+        cols = mont[:, -k:].contiguous()
+        got = cuda_merkle.mont_digits(cols)
+        digit_errs[k] = max(max_abs_err(torch, got, dm.plain_digits(cols)), max_abs_err(torch, got, d[:, -k:]))
+    errs["mont_digits"] = max(digit_errs.values())
+    if errs["merkle_leaves"] or errs["mont_digits"]:
+        raise AssertionError(f"K4 on Montgomery limbs or mont_digits disagrees with its plain version: "
+                             f"{errs['merkle_leaves']}, {digit_errs}")
+    leaves_digits_ms = device_ms(lambda: cuda_merkle.merkle_leaves(d))
+    report["merkle_leaves"] = (device_ms(lambda: cuda_merkle.merkle_leaves_mont(mont)),
+                               call_ms(lambda: cuda_merkle.merkle_leaves_mont_plain(mont)),
                                *bound_at("merkle_leaves", n))
+    digit_cols = {k: mont[:, -k:].contiguous() for k in DIGIT_SIZES}  # copied outside the timed calls
+    digits_ms = {k: device_ms(lambda: cuda_merkle.mont_digits(digit_cols[k])) for k in DIGIT_SIZES}
+    del digit_cols
     report["merkle_level"] = (device_ms(lambda: cuda_merkle.merkle_level(leaves)),
                               call_ms(lambda: dm.level_hash(leaves)),
                               *bound_at("merkle_level", n))
@@ -756,7 +945,11 @@ def main() -> int:
     say("merkle_kernels", n=n, max_abs_err={"leaves": errs["merkle_leaves"], "level": errs["merkle_level"]},
         ms={k: {"kernel": report[k][0], "plain": report[k][1], "bound": report[k][2], "bound_by": report[k][3]}
             for k in ("merkle_leaves", "merkle_level")},
+        leaves_from_digits_ms={"kernel": leaves_digits_ms,
+                               "bound": bound_at("merkle_leaves_digits", n)[0]},
         tree_2e13_root=tree.root.hex(), auth_paths_checked=opened)
+    say("mont_digits", sizes=list(DIGIT_SIZES), max_abs_err=digit_errs, ms=digits_ms,
+        bound_ms={k: bound_at("mont_digits", k)[0] for k in DIGIT_SIZES})
 
     fold_errs = {}
     for logn in (13, 20):
@@ -890,6 +1083,34 @@ def main() -> int:
         ms={f"{name} @ {n}": timed[name, n] for name in FIELD_MAIN for n in FIELD_SIZES},
         main={name: {"n": FIELD_MAIN[name], "kernel": report[name][0], "plain": report[name][1],
                      "bound": report[name][2], "bound_by": report[name][3]} for name in FIELD_MAIN})
+
+    # K11, the combination, with fib's structure at 2^13 and 2^20 against its
+    # plain version (the program's interpreter), timed at 2^20
+    fib_program = cuda_combination.encode(FIB_STRUCTURE, 2, 4)
+    comb_errs = {}
+    for logn in (13, 20):
+        comb_args = combination_operands(limbs, FIB_STRUCTURE, 5, 1 << logn, 1000 * logn, dev)
+        before = kernels.LAUNCHES["combination"]
+        got = cuda_combination.combination(fib_program, *comb_args)
+        if kernels.LAUNCHES["combination"] != before + 1:
+            raise AssertionError(f"the combination at 2^{logn} did not count one launch")
+        want = cuda_combination.combination_plain(fib_program, *comb_args)
+        comb_errs[1 << logn] = max(max_abs_err(torch, got[0], want[0]), max_abs_err(torch, got[1], want[1]))
+        del got, want
+    if any(comb_errs.values()):
+        raise AssertionError(f"the combination kernel disagrees with its plain version: {comb_errs}")
+    n = 1 << 20
+    fib_comb = {"kernel": device_ms(lambda: cuda_combination.combination(fib_program, *comb_args)),
+                "plain": call_ms(lambda: cuda_combination.combination_plain(fib_program, *comb_args), reps=2),
+                "bytes": combination_bytes(comb_args), "products_per_point": program_products(fib_program)}
+    fib_comb["bound"], fib_comb["bound_by"] = bound(fib_comb["bytes"], product * (fib_comb["products_per_point"] * n
+                                                                                   / 32))
+    report["combination"] = (fib_comb["kernel"], fib_comb["plain"], fib_comb["bound"], fib_comb["bound_by"])
+    errs["combination"] = 0
+    del comb_args
+    say("combination_kernel", structure="fib", max_abs_err=comb_errs, powers=len(fib_program.powers),
+        terms=len(fib_program.terms), ms=fib_comb,
+        warp_instructions_per_thread_without_loops=sass.count(sass.find(funcs, "combination_kernel"))._asdict())
 
     # R1, the Rescue permutation, in both modes against its plain version;
     # 64 instances against the host model; the S-boxes of a trace inverted
@@ -1035,16 +1256,19 @@ def main() -> int:
     before = {k: kernels.LAUNCHES[k] for k in FIELD_MAIN}
     Stark._interpolate_trace = refuse_host_interpolation
     try:
-        result, proof = small.prove(a, b)
+        with guard.count_plain_calls() as plain_small:
+            result, proof = small.prove(a, b)
     finally:
         Stark._interpolate_trace = host_interpolation
+    if sum(plain_small.values()):
+        raise AssertionError(f"fib-1000 on the card called field_ops on CUDA tensors: {dict(plain_small)}")
     if result != host_result or proof != host_proof:
         raise AssertionError("fib-1000 proof on the card differs from the host prover's")
     small_field = {k: kernels.LAUNCHES[k] - before[k] for k in FIELD_MAIN}
     if not all(small_field.values()):
         raise AssertionError(f"fib-1000 on the card did not launch every field kernel: {small_field}")
     say("small_prove", steps=1000, fri_domain=8192, proof_bytes=len(proof), identical_to_host=True,
-        field_kernel_launches=small_field)
+        field_kernel_launches=small_field, plain_field_ops_on_cuda=sum(plain_small.values()))
 
     # RescueStark.prove_batch of 8 on the card, its witnesses from R1; then
     # MiMC-30 and chain-4 through the device pipeline, its floor lowered to 512 points
@@ -1068,7 +1292,10 @@ def main() -> int:
             raise AssertionError(f"{name} did not take the device pipeline on its "
                                  f"{card.stark.fri_domain_length}-point domain")
         x = FieldElement(77)
-        output, proof = card.prove(x)
+        with guard.count_plain_calls() as plain_small:
+            output, proof = card.prove(x)
+        if sum(plain_small.values()):
+            raise AssertionError(f"{name} on the card called field_ops on CUDA tensors: {dict(plain_small)}")
         if (output, proof) != host.prove(x):
             raise AssertionError(f"{name} proved through the device pipeline on the card differs from the host's")
         small_bytes[name] = len(proof)
@@ -1085,10 +1312,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result, proof = model.prove(a, b)
-    torch.cuda.synchronize()
+    with guard.count_plain_calls() as plain_cold:
+        result, proof = model.prove(a, b)
+        torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    cold_split = combination_split(model.stark.last_profile)
     launches = dict(kernels.LAUNCHES)
     by_size = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
     ntt_launches = {n: {k: c for k, c in v.items() if k.startswith("ntt_")} for n, v in by_size.items()}
@@ -1102,6 +1331,12 @@ def main() -> int:
         raise AssertionError(f"the 2^16-step prove launched a probe kernel: {launches}")
     if fused < 2:
         raise AssertionError(f"the 2^16-step prove fused {fused} FRI rounds, expected >= 2")
+    if sum(plain_cold.values()):
+        raise AssertionError(f"the 2^16-step prove called field_ops on CUDA tensors: {dict(plain_cold)}")
+    if launches["combination"] != 1:
+        raise AssertionError(f"the 2^16-step prove launched the combination {launches['combination']} times")
+    if model.stark._device_air_groups(model.stark._device_core(), model._constraints)[1] != FIB_STRUCTURE:
+        raise AssertionError("the 2^16-step prove's AIR structure is not the one phase 2 checked")
     unchecked = sorted(set(ntt_launches) - set(ntt_sizes))
     if unchecked:
         raise AssertionError(f"the 2^16-step prove ran NTT passes at sizes phase 2 did not check: {unchecked}")
@@ -1130,11 +1365,16 @@ def main() -> int:
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model.prove(a, b)
-    torch.cuda.synchronize()
+    with guard.count_plain_calls() as plain_warm:
+        model.prove(a, b)
+        torch.cuda.synchronize()
     warm_prove_s = time.perf_counter() - t0
     Stark._interpolate_trace = host_interpolation
     warm_launches = dict(kernels.LAUNCHES)
+    warm_split = combination_split(model.stark.last_profile)
+    if sum(plain_warm.values()) or warm_launches["combination"] != 1:
+        raise AssertionError(f"the warm 2^16-step prove called field_ops on CUDA tensors ({dict(plain_warm)}) or "
+                             f"launched the combination {warm_launches['combination']} times")
     warm_stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
     # the part of the warm prove outside the prover's stages, and the host
     # trace build (FibonacciAir.trace, before Stark.prove) it holds
@@ -1146,7 +1386,8 @@ def main() -> int:
         warm_prove_seconds=warm_prove_s, verify_seconds=verify_s, proof_bytes=len(proof), fused_fri_rounds=fused,
         launches=launches, warm_launches=warm_launches, ntt_launches_by_size=ntt_launches, stages_seconds=stages,
         warm_stages_seconds=warm_stages, warm_unstaged_seconds=unstaged_s, trace_build_seconds=trace_build_s,
-        peak_device_mib=peak_mib,
+        plain_field_ops_on_cuda={"cold": sum(plain_cold.values()), "warm": sum(plain_warm.values())},
+        combination_split={"cold": cold_split, "warm": warm_split}, peak_device_mib=peak_mib,
         warm_peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
     print(f"fused FRI rounds: {fused}", flush=True)
     say("ntt_sizes", rows=[{"n": n, "launches": ntt_launches.get(n, {}), **ntt_sizes[n]} for n in sorted(ntt_sizes)])
@@ -1158,9 +1399,9 @@ def main() -> int:
             timed[name, n] = passes[name]["kernel"]
 
     def launch_at(name: str, size: int):
-        if name == "merkle_leaves":
-            x = d[:, :size].contiguous()
-            return lambda: cuda_merkle.merkle_leaves(x)
+        if name == "merkle_leaves":  # the prove's form: on Montgomery limbs
+            x = mont[:, :size].contiguous()
+            return lambda: cuda_merkle.merkle_leaves_mont(x)
         if name in ("merkle_level", "merkle_top"):
             x = leaves[:, :size].contiguous()
             return lambda: getattr(cuda_merkle, name)(x)
@@ -1175,25 +1416,47 @@ def main() -> int:
             return lambda: cuda_fs.fs_round(x, size, 4, root)
         if name in FIELD_MAIN:  # the elementwise kernel as the product of two full operands
             return field_calls(size)["mont_binary/mul" if name == "mont_binary" else name][0]
+        if name == "mont_digits":
+            x = limbs.from_numpy(limbs.seeded_mont(size, size), dev)
+            return lambda: cuda_merkle.mont_digits(x)
         raise AssertionError(f"no timer for {name} at launch size {size}")
 
-    def kernel_sums(by_size, launches):
+    def kernel_sums(by_size, launches, own):
         """Each kernel's device ms and bound ms in one prove: its launches
-        at each size times its time (bound) at that size."""
+        at each size times its time (bound) at that size; ``own`` gives
+        (ms, bound ms) of the calls whose time depends on the prove's
+        operands, not their size alone (the combination's program).  Also
+        returns the ms a call at each (name, size)."""
         prove_ms = dict.fromkeys(launches, 0.0)
         prove_bound_ms = dict.fromkeys(launches, 0.0)
+        per_call = {}
         for size, counts in by_size.items():
             for name, count in counts.items():
-                if (name, size) not in timed:
-                    timed[name, size] = device_ms(launch_at(name, size))
-                prove_ms[name] += count * timed[name, size]
-                prove_bound_ms[name] += count * (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
-                                                 else bound_at(name, size)[0])
+                if (name, size) in own:
+                    ms, bound_ms = own[name, size]
+                else:
+                    if (name, size) not in timed:
+                        timed[name, size] = device_ms(launch_at(name, size))
+                    ms = timed[name, size]
+                    bound_ms = (ntt_sizes[size][name]["bound"] if name.startswith("ntt_")
+                                else bound_at(name, size)[0])
+                prove_ms[name] += count * ms
+                prove_bound_ms[name] += count * bound_ms
+                per_call[name, size] = ms
         if any(sum(v.get(name, 0) for v in by_size.values()) != launches[name] for name in launches):
             raise AssertionError(f"launches by size do not add up to the launch counts: {by_size} vs {launches}")
-        return prove_ms, prove_bound_ms
+        return prove_ms, prove_bound_ms, per_call
 
-    prove_ms, prove_bound_ms = kernel_sums(by_size, launches)
+    prove_ms, prove_bound_ms, prove_calls = kernel_sums(by_size, launches,
+                                                        own={("combination", 1 << 20): (fib_comb["kernel"],
+                                                                                         fib_comb["bound"])})
+    # mont_digits' row: the size it spends most of the prove's time at
+    digits_sizes = {size: v["mont_digits"] * timed["mont_digits", size]
+                    for size, v in by_size.items() if "mont_digits" in v}
+    digits_main = max(digits_sizes, key=digits_sizes.get)
+    digits_in = limbs.from_numpy(limbs.seeded_mont(digits_main, digits_main), dev)
+    report["mont_digits"] = (timed["mont_digits", digits_main], call_ms(lambda: dm.plain_digits(digits_in)),
+                             *bound_at("mont_digits", digits_main))
     # the levels the top kernel hashes, as the chain of level launches it replaces
     small_levels_before = sum(v["merkle_top"] * top_sweep[size]["level_chain"]
                               for size, v in by_size.items() if "merkle_top" in v)
@@ -1209,7 +1472,7 @@ def main() -> int:
     say("prove_kernels", prove_ms=prove_ms, prove_bound_ms=prove_bound_ms, merkle_level_split=k5_split,
         middle_levels_ms={"level_launches": middle_before, "merkle_subtrees": prove_ms["merkle_subtrees"]},
         small_levels_ms={"level_launches": small_levels_before, "merkle_top": prove_ms["merkle_top"]},
-        by_size=[{"size": size, **{k: {"launches": c, "ms": timed[k, size]} for k, c in v.items()}}
+        by_size=[{"size": size, **{k: {"launches": c, "ms": prove_calls[k, size]} for k, c in v.items()}}
                  for size, v in by_size.items()])
 
     # -- 5. the chain: RescueChainStark(4096) on its 2^20-point FRI domain ----------
@@ -1236,9 +1499,11 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        chain_out, chain_proof = chain.prove(x)
-        torch.cuda.synchronize()
+        with guard.count_plain_calls() as chain_plain_cold:
+            chain_out, chain_proof = chain.prove(x)
+            torch.cuda.synchronize()
         chain_cold_s = time.perf_counter() - t0
+        chain_cold_split = combination_split(chain.stark.last_profile)
         chain_launches = dict(kernels.LAUNCHES)
         chain_by_size = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
         chain_peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -1247,9 +1512,11 @@ def main() -> int:
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        warm_out, _ = chain.prove(x)
-        torch.cuda.synchronize()
+        with guard.count_plain_calls() as chain_plain_warm:
+            warm_out, _ = chain.prove(x)
+            torch.cuda.synchronize()
         chain_warm_s = time.perf_counter() - t0
+        chain_warm_split = combination_split(chain.stark.last_profile)
         chain_warm_launches = dict(kernels.LAUNCHES)
         chain_warm_peak_mib = torch.cuda.max_memory_allocated() / 2**20
         chain_warm_stages = {k: round(v, 4) for k, v in sorted(chain.stark.last_profile.totals.items(),
@@ -1264,8 +1531,16 @@ def main() -> int:
         prove_seconds=chain_cold_s, warm_prove_seconds=chain_warm_s, proof_bytes=len(chain_proof),
         fused_fri_rounds=chain.stark.fri.last_fused_rounds, launches=chain_launches,
         warm_launches=chain_warm_launches, ntt_sizes=chain_ntt, prefix_mul_by_size=chain_prefix,
-        stages_seconds=chain_stages, warm_stages_seconds=chain_warm_stages, peak_device_mib=chain_peak_mib,
+        stages_seconds=chain_stages, warm_stages_seconds=chain_warm_stages,
+        plain_field_ops_on_cuda={"cold": sum(chain_plain_cold.values()), "warm": sum(chain_plain_warm.values())},
+        combination_split={"cold": chain_cold_split, "warm": chain_warm_split}, peak_device_mib=chain_peak_mib,
         warm_peak_device_mib=chain_warm_peak_mib)
+    if sum(chain_plain_cold.values()) or sum(chain_plain_warm.values()):
+        raise AssertionError(f"the chain proves called field_ops on CUDA tensors: cold {dict(chain_plain_cold)}, "
+                             f"warm {dict(chain_plain_warm)}")
+    if (chain_launches["combination"], chain_warm_launches["combination"]) != (1, 1):
+        raise AssertionError(f"the chain proves launched the combination {chain_launches['combination']} and "
+                             f"{chain_warm_launches['combination']} times, expected once each")
     missing = [k for k in pipeline if chain_launches[k] <= 0]
     if missing:
         raise AssertionError(f"the chain prove never launched {missing}: {chain_launches}")
@@ -1287,9 +1562,38 @@ def main() -> int:
         raise AssertionError("the host verifier rejects the card's chain proof")
     if chain_verifier.verify(chain_out + FieldElement(1), chain_proof):
         raise AssertionError("the host verifier accepts a wrong chain output")
-    chain_ms, chain_bound_ms = kernel_sums(chain_by_size, chain_launches)
+    # K11 with the chain's own structure and group codewords (built by its
+    # prove, cached), at 2^13 (their first 8192 points) and 2^20, against
+    # its plain version; timed at 2^20
+    chain_core = chain.stark._device_core()
+    chain_groups, chain_structure = chain.stark._device_air_groups(chain_core, chain_air)
+    chain_program = cuda_combination.encode(chain_structure, chain.stark.num_registers, chain.stark.expansion_factor)
+    chain_comb_errs = {}
+    for logn in (13, 20):
+        m = 1 << logn
+        groups = [g[:, :m].contiguous() for g in chain_groups]
+        chain_args = combination_operands(limbs, chain_structure, groups, m, 7000 + logn, dev,
+                                          num_bq=chain.stark.num_registers)
+        got = cuda_combination.combination(chain_program, *chain_args)
+        want = cuda_combination.combination_plain(chain_program, *chain_args)
+        chain_comb_errs[m] = max(max_abs_err(torch, got[0], want[0]), max_abs_err(torch, got[1], want[1]))
+        del got, want
+    if any(chain_comb_errs.values()):
+        raise AssertionError(f"the combination kernel disagrees with its plain version on the chain's structure: "
+                             f"{chain_comb_errs}")
+    chain_comb = {"kernel": device_ms(lambda: cuda_combination.combination(chain_program, *chain_args)),
+                  "plain": call_ms(lambda: cuda_combination.combination_plain(chain_program, *chain_args), reps=2),
+                  "bytes": combination_bytes(chain_args), "products_per_point": program_products(chain_program)}
+    chain_comb["bound"], chain_comb["bound_by"] = bound(
+        chain_comb["bytes"], product * (chain_comb["products_per_point"] * (1 << 20) / 32))
+    del chain_args
+    say("combination_kernel", structure="rescue_chain", constraints=len(chain_structure),
+        groups=len(chain_groups), powers=len(chain_program.powers), terms=len(chain_program.terms),
+        max_abs_err=chain_comb_errs, ms=chain_comb)
+    chain_ms, chain_bound_ms, chain_calls = kernel_sums(
+        chain_by_size, chain_launches, own={("combination", 1 << 20): (chain_comb["kernel"], chain_comb["bound"])})
     say("chain_kernels", verify_seconds=chain_verify_s, prove_ms=chain_ms, prove_bound_ms=chain_bound_ms,
-        by_size=[{"size": size, **{k: {"launches": c, "ms": timed[k, size]} for k, c in v.items()}}
+        by_size=[{"size": size, **{k: {"launches": c, "ms": chain_calls[k, size]} for k, c in v.items()}}
                  for size, v in chain_by_size.items()])
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "stark_tpu") or m.startswith(("jax.", "stark_tpu.")))
@@ -1311,6 +1615,8 @@ def main() -> int:
         "geometric_table": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/device_prover.py:226"),
         "mont_binary": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/ops/field_ops.py:244"),
         "rescue_permutation": ("stark_tpu_torch/csrc/rescue.cu", "stark_tpu/ops/rescue.py:92"),
+        "combination": ("stark_tpu_torch/csrc/combination.cu", "stark_tpu/ops/device_prover.py:695"),
+        "mont_digits": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/device_prover.py:54"),
         **{name: ("stark_tpu_torch/csrc/probes.cu", rep) for name, (_, rep) in probes.items()},
     }
     # launches on each kernel's own path: the fib-2^16 prove, prove_batch's
@@ -1340,6 +1646,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         sys.exit(times_of(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--proves":
+        sys.exit(proves_of(sys.argv[2]))
     if len(sys.argv) != 1:
-        sys.exit(f"usage: {sys.argv[0]} [--times DIR]")
+        sys.exit(f"usage: {sys.argv[0]} [--times DIR | --proves DIR]")
     sys.exit(main())

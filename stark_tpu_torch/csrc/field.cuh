@@ -91,6 +91,26 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
     return fe_reduce_once(t0, t1, t2, t3, t4);
 }
 
+// Montgomery form -> plain residue: REDC of (a, 0), i.e. a * 2^-128 mod p,
+// the Montgomery product by 1 (field_ops.from_mont).  fe_mul's reduction
+// steps with no partial products: word i of b = (1, 0, 0, 0) adds a to
+// t = 0 in step 0 and nothing after.  Canonical for any a < 2^128.
+__device__ __forceinline__ Fe fe_from_mont(const Fe& a) {
+    uint32_t t0 = a.w[0], t1 = a.w[1], t2 = a.w[2], t3 = a.w[3], t4 = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const uint32_t m = 0u - t0;
+        uint64_t s = static_cast<uint64_t>(t0) + m;
+        s = static_cast<uint64_t>(t1) + (s >> 32);                        const uint32_t u0 = static_cast<uint32_t>(s);
+        s = static_cast<uint64_t>(t2) + (s >> 32);                        const uint32_t u1 = static_cast<uint32_t>(s);
+        s = static_cast<uint64_t>(m) * kPTop + t3 + (s >> 32);            const uint32_t u2 = static_cast<uint32_t>(s);
+        s = static_cast<uint64_t>(t4) + (s >> 32);                        const uint32_t u3 = static_cast<uint32_t>(s);
+        t4 = static_cast<uint32_t>(s >> 32);
+        t0 = u0; t1 = u1; t2 = u2; t3 = u3;
+    }
+    return fe_reduce_once(t0, t1, t2, t3, t4);
+}
+
 __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
     uint64_t s;
     s = static_cast<uint64_t>(a.w[0]) + b.w[0];             const uint32_t t0 = static_cast<uint32_t>(s);

@@ -37,7 +37,17 @@
 // one-block, one-subtree case of the same level loop (hash_levels).
 //
 // Layouts are the JAX package's: digits (4, n) and digest words (8, w),
-// u32 bits held in int32 tensors.  The level kernel reads its children
+// u32 bits held in int32 tensors.
+//
+// The leaf kernel also takes the prover's codewords as they are, (8, n)
+// Montgomery limbs: the JAX package converts them to digits first
+// (stark_tpu/ops/device_prover.py _plain_digits, an XLA function); here
+// each thread loads its element's 32 bytes, reduces it out of Montgomery
+// form in registers (field.cuh fe_from_mont, one REDC: ~40 integer
+// instructions beside the compress's ~1.1k) and hashes as before, so no
+// digit array is written and read again.  The same conversion alone
+// (mont_digits_kernel) serves the opening gathers and the host fetches of
+// small codewords (_plain_digits / _value_gather there).  The level kernel reads its children
 // (2i, 2i + 1) itself; the even/odd split of the TPU version was a Mosaic
 // restriction, as was its 256-wide minimum level.
 
@@ -46,6 +56,7 @@
 #include <cstdint>
 
 #include "blake2b.cuh"
+#include "field.cuh"
 
 namespace {
 
@@ -66,13 +77,27 @@ constexpr size_t top_smem_bytes(int64_t w) { return static_cast<size_t>(24 * w);
 constexpr int kSubThreads = 256;
 constexpr int64_t kSubChunk = 256;
 
+// Element i of an (8, n) Montgomery limb array as its plain base-2^32 digits.
+__device__ __forceinline__ stark::Fe plain_digits_of(const int32_t* __restrict__ mont, int64_t n, int64_t i) {
+    return stark::fe_from_mont(stark::fe_load(mont, n, i));
+}
+
 // Leaf i: Blake2b-256 of bincode(FieldElement) = sign u32 | digit count
 // u64 | k base-2^32 digits, where k = index + 1 of the highest nonzero
-// digit (0 for zero) and sign = 2 (Plus) if k > 0 else 1 (NoSign).
-__global__ void leaf_kernel(const uint32_t* __restrict__ digits, uint32_t* __restrict__ out, int64_t n) {
+// digit (0 for zero) and sign = 2 (Plus) if k > 0 else 1 (NoSign).  kMont:
+// the input is (8, n) Montgomery limbs, else (4, n) plain digits.
+template <bool kMont>
+__global__ void leaf_kernel(const int32_t* __restrict__ in, uint32_t* __restrict__ out, int64_t n) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const uint32_t d0 = digits[i], d1 = digits[n + i], d2 = digits[2 * n + i], d3 = digits[3 * n + i];
+    uint32_t d0, d1, d2, d3;
+    if constexpr (kMont) {
+        const stark::Fe v = plain_digits_of(in, n, i);
+        d0 = v.w[0]; d1 = v.w[1]; d2 = v.w[2]; d3 = v.w[3];
+    } else {
+        const uint32_t* digits = reinterpret_cast<const uint32_t*>(in);
+        d0 = digits[i]; d1 = digits[n + i]; d2 = digits[2 * n + i]; d3 = digits[3 * n + i];
+    }
     const uint64_t k = d3 ? 4 : d2 ? 3 : d1 ? 2 : d0 ? 1 : 0;
     uint64_t m[16] = {};
     m[0] = (k ? 2ull : 1ull) | (k << 32);
@@ -82,6 +107,16 @@ __global__ void leaf_kernel(const uint32_t* __restrict__ digits, uint32_t* __res
     uint64_t h[4];
     blake2b256_block(m, 12 + 4 * k, h);
     store_digest(out, n, i, h);
+}
+
+// digits[k * n + i] = word k of element i's plain value, from (8, n)
+// Montgomery limbs.
+__global__ void mont_digits_kernel(const int32_t* __restrict__ mont, uint32_t* __restrict__ digits, int64_t n) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const stark::Fe v = plain_digits_of(mont, n, i);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) digits[k * n + i] = v.w[k];
 }
 
 // Parent i of the planar (8, w) level src (global or shared memory):
@@ -155,8 +190,26 @@ __global__ void __launch_bounds__(kSubThreads) subtrees_kernel(const uint32_t* _
 extern "C" int stark_merkle_leaves(const int32_t* digits, int32_t* out, int64_t n, void* stream) {
     if (n <= 0) return cudaErrorInvalidValue;
     const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    leaf_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const uint32_t*>(digits), reinterpret_cast<uint32_t*>(out), n);
+    leaf_kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        digits, reinterpret_cast<uint32_t*>(out), n);
+    return cudaGetLastError();
+}
+
+// mont: (8, n) Montgomery limbs; out: (8, n).
+extern "C" int stark_merkle_leaves_mont(const int32_t* mont, int32_t* out, int64_t n, void* stream) {
+    if (n <= 0) return cudaErrorInvalidValue;
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    leaf_kernel<true><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        mont, reinterpret_cast<uint32_t*>(out), n);
+    return cudaGetLastError();
+}
+
+// mont: (8, n) Montgomery limbs; digits: (4, n) plain base-2^32 digits.
+extern "C" int stark_mont_digits(const int32_t* mont, int32_t* digits, int64_t n, void* stream) {
+    if (n <= 0) return cudaErrorInvalidValue;
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    mont_digits_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        mont, reinterpret_cast<uint32_t*>(digits), n);
     return cudaGetLastError();
 }
 

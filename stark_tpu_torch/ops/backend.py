@@ -14,7 +14,11 @@ routes the prover's numeric stages to one explicit torch device:
 Below ``min_device_size`` points the host NTT does the work, exactly as in
 the JAX backend.  Transforms of 2^13 points and more use the four-step
 plan, whose passes are the CUDA kernels on the card and their plain
-versions on the CPU.  Results are bit-equal to the host either way.
+versions on the CPU; on the card so do the smaller transforms of the
+device trace interpolation, down to 64 points (:func:`best_plan`).  The
+conversions into and out of Montgomery form and the pointwise products
+run on K10 (:mod:`stark_tpu_torch.ops.cuda_field`) on the card.  Results
+are bit-equal to the host either way.
 """
 
 from __future__ import annotations
@@ -24,19 +28,26 @@ from typing import List, Sequence
 import torch
 
 from ..params import P
-from . import field_ops as fo
+from . import cuda_field as cf
 from . import rescue
 from .cuda_fold import fri_fold
-from .cuda_ntt import CUDA_NTT_MIN_SIZE, get_cuda_plan
+from .cuda_ntt import CUDA_NTT_MIN_SIZE, FOUR_STEP_MIN_SIZE, get_cuda_plan
 from .limbs import _fold_tables, from_numpy, mont_tensor, pack, to_numpy, unpack
 from .ntt import get_plan
 
 
 def best_plan(n: int, device):
-    """Four-step plan (CUDA passes) from 2^13 points, stage-by-stage below."""
-    if n >= CUDA_NTT_MIN_SIZE:
-        return get_cuda_plan(n, device)
-    return get_plan(n, device)
+    """Four-step plan (CUDA passes) from 2^13 points; below, the
+    stage-by-stage plain plan on the CPU, and on the card the four-step
+    plan down to FOUR_STEP_MIN_SIZE (the plain plan's arithmetic would run
+    eagerly on the card); smaller transforms raise there."""
+    dev = torch.device(device)
+    if n >= CUDA_NTT_MIN_SIZE or (dev.type == "cuda" and n >= FOUR_STEP_MIN_SIZE):
+        return get_cuda_plan(n, dev)
+    if dev.type == "cuda":
+        raise ValueError(f"no transform of {n} points on the card: the four-step passes take n >= "
+                         f"{FOUR_STEP_MIN_SIZE}")
+    return get_plan(n, dev)
 
 
 def resolve_device(device) -> torch.device:
@@ -70,7 +81,7 @@ class TorchBackend:
 
     def _upload_mont(self, values: Sequence[int], n: int) -> torch.Tensor:
         padded = list(values) + [0] * (n - len(values))
-        return fo.to_mont(from_numpy(pack(padded), self.device))
+        return cf.to_mont(from_numpy(pack(padded), self.device))
 
     def rs_extend(self, coeffs: Sequence[int], n: int, offset: int) -> List[int]:
         """Evaluate the polynomial (coeffs, lowest first) over the coset
@@ -80,7 +91,7 @@ class TorchBackend:
 
             return NTT(n).coset_evaluate(list(coeffs), offset)
         out = best_plan(n, self.device).coset_forward(self._upload_mont(coeffs, n), offset % P)
-        return unpack(to_numpy(fo.from_mont(out)))
+        return unpack(to_numpy(cf.from_mont(out)))
 
     def rs_restrict(self, evals: Sequence[int], offset: int) -> List[int]:
         """Inverse of :meth:`rs_extend`: coset evaluations -> coefficients."""
@@ -90,7 +101,7 @@ class TorchBackend:
 
             return NTT(n).coset_interpolate(list(evals), offset)
         out = best_plan(n, self.device).coset_inverse(self._upload_mont(evals, n), offset % P)
-        return unpack(to_numpy(fo.from_mont(out)))
+        return unpack(to_numpy(cf.from_mont(out)))
 
     def poly_multiply(self, a: Sequence[int], b: Sequence[int]) -> List[int]:
         """Polynomial product via device NTTs."""
@@ -105,17 +116,17 @@ class TorchBackend:
         plan = best_plan(n, self.device)
         fa = plan.forward(self._upload_mont(a, n))
         fb = plan.forward(self._upload_mont(b, n))
-        prod = plan.inverse(fo.mont_mul(fa, fb))
-        return unpack(to_numpy(fo.from_mont(prod)))[:result_size]
+        prod = plan.inverse(cf.mont_mul(fa, fb))
+        return unpack(to_numpy(cf.from_mont(prod)))[:result_size]
 
     def fri_fold(self, codeword: Sequence[int], alpha: int, offset: int, omega: int) -> List[int]:
         """One FRI fold of a host codeword on the device: plain residues
         in and out."""
         half = len(codeword) // 2
-        cw = fo.to_mont(from_numpy(pack(list(codeword)), self.device))
+        cw = cf.to_mont(from_numpy(pack(list(codeword)), self.device))
         a = mont_tensor([alpha % P], self.device)
         inv_table = from_numpy(_fold_tables(offset % P, omega % P, half), self.device)
-        return unpack(to_numpy(fo.from_mont(fri_fold(cw, a, inv_table))))
+        return unpack(to_numpy(cf.from_mont(fri_fold(cw, a, inv_table))))
 
     def rescue_hash(self, inputs: Sequence[int]) -> List[int]:
         """Batched Rescue-Prime hashes of ``inputs`` on this device (the

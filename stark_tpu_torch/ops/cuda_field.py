@@ -14,7 +14,8 @@ boundary quotients:
   bases and stepping by base^(2^m) (:func:`geometric_step_bits`);
 * :func:`mont_mul`, :func:`add`, :func:`sub`, :func:`neg` (K10,
   ``stark_mont_binary``): one elementwise operation, either operand an
-  (8, 1) column broadcast along the other.
+  (8, 1) column broadcast along the other; :func:`to_mont` and
+  :func:`from_mont` are its product by the column R^2 and by 1.
 
 In the JAX package these are XLA-fused functions with no Pallas form
 (``field_ops.mont_inv`` / ``mont_mul`` / ``add`` / ``sub``,
@@ -31,10 +32,11 @@ from typing import Dict
 
 import torch
 
-from ..params import NUM_LIMBS
+from ..params import NUM_LIMBS, R2_MOD_P
 from . import field_ops as fo
 from . import kernels
 from .cuda_fold import _check
+from .limbs import limbs_of
 
 MUL, ADD, SUB = 0, 1, 2
 _PLAIN = {MUL: fo.mont_mul, ADD: fo.add, SUB: fo.sub}
@@ -96,6 +98,31 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def neg(a: torch.Tensor) -> torch.Tensor:
     """(-a) mod p: 0 - a, the zero a broadcast column."""
     return sub(torch.zeros((NUM_LIMBS, 1), dtype=torch.int32, device=a.device), a)
+
+
+#: (value, device) -> its (8, 1) limb column, uploaded once: an upload from
+#: host memory waits for the device's queue
+_COLUMNS: Dict[tuple, torch.Tensor] = {}
+
+
+def _plain_column(value: int, device) -> torch.Tensor:
+    """(8, 1) int32 limbs of a plain constant on ``device``."""
+    key = (value, torch.device(device))
+    col = _COLUMNS.get(key)
+    if col is None:
+        col = _COLUMNS[key] = torch.tensor(limbs_of(value), dtype=torch.int32, device=device).reshape(NUM_LIMBS, 1)
+    return col
+
+
+def to_mont(a: torch.Tensor) -> torch.Tensor:
+    """Plain residues (any value < 2^128) -> canonical Montgomery form:
+    REDC(a * R^2), one K10 product by the (8, 1) column R^2 mod p."""
+    return mont_mul(a, _plain_column(R2_MOD_P, a.device))
+
+
+def from_mont(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery form -> plain residues: REDC(a * 1), one K10 product."""
+    return mont_mul(a, _plain_column(1, a.device))
 
 
 # -- K7 -----------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Blake2b-256 Merkle tree through the hand-written CUDA kernels (K4, K5,
-the subtrees kernel and the top kernel).
+the subtrees kernel and the top kernel), and the digit conversion.
 
 Counterpart of :mod:`stark_tpu.ops.pallas_merkle`
 (``leaf_digests_pallas``, ``level_hash_pallas``, ``tree_levels``).
@@ -12,6 +12,14 @@ plain PyTorch versions are
 :func:`~stark_tpu_torch.ops.device_merkle.merkle_top_plain`, and run only
 for tensors on the CPU.  For a CUDA tensor a wrapper launches its kernel or
 raises.
+
+K4 also takes the prover's (8, n) Montgomery codewords as they are
+(:func:`merkle_leaves_mont`: the conversion to plain digits in the
+kernel's loads), and :func:`mont_digits` runs that conversion alone
+(``stark_mont_digits``) for the opening gathers and the host fetches: the
+JAX package's jitted ``_plain_digits`` / ``_value_gather``
+(stark_tpu/ops/device_prover.py:54, :63), whose plain version here is
+:func:`stark_tpu_torch.ops.device_merkle.plain_digits`.
 
 A tree (:func:`tree_levels`) runs the leaf kernel, then the level kernel,
 one launch a level, while its level is wider than :data:`SUBTREE_WIDTH`,
@@ -27,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .device_merkle import leaf_digests_from_digits, level_hash, merkle_subtrees_plain, merkle_top_plain, top_slabs
+from .device_merkle import (leaf_digests_from_digits, level_hash, merkle_subtrees_plain, merkle_top_plain,
+                            plain_digits, top_slabs)
 
 #: widest level that :func:`tree_levels` hands to the top kernel: one
 #: block hashing the levels above it beats a launch a level
@@ -70,6 +79,44 @@ def merkle_leaves(digits: torch.Tensor) -> torch.Tensor:
     out = torch.empty((8, n), dtype=torch.int32, device=digits.device)
     kernels.launch("merkle_leaves", "stark_merkle_leaves", kernels.ptr(digits), kernels.ptr(out), n,
                    device=digits.device, size=n)
+    return out
+
+
+def merkle_leaves_mont_plain(mont: torch.Tensor) -> torch.Tensor:
+    """:func:`merkle_leaves_mont`'s plain version: the digits, then the leaves."""
+    return leaf_digests_from_digits(plain_digits(mont))
+
+
+def merkle_leaves_mont(mont: torch.Tensor) -> torch.Tensor:
+    """K4 on an (8, n) Montgomery codeword: the (8, n) leaf digests of its
+    plain values, with the conversion (one Montgomery reduction an
+    element, ``fe_from_mont``) in the kernel's loads; the same digests as
+    ``merkle_leaves(plain_digits(mont))``.  Counted as ``merkle_leaves``."""
+    _check("mont", mont, 8)
+    n = int(mont.shape[1])
+    if n == 0:
+        raise ValueError("no leaves")
+    if mont.device.type == "cpu":
+        return merkle_leaves_mont_plain(mont)
+    out = torch.empty((8, n), dtype=torch.int32, device=mont.device)
+    kernels.launch("merkle_leaves", "stark_merkle_leaves_mont", kernels.ptr(mont), kernels.ptr(out), n,
+                   device=mont.device, size=n)
+    return out
+
+
+def mont_digits(mont: torch.Tensor) -> torch.Tensor:
+    """(8, K) Montgomery limbs -> (4, K) plain base-2^32 digits (``int32``
+    holding u32 bits): one launch of ``stark_mont_digits`` on the card,
+    :func:`~stark_tpu_torch.ops.device_merkle.plain_digits` on the CPU."""
+    _check("mont", mont, 8)
+    k = int(mont.shape[1])
+    if k == 0:
+        raise ValueError("no elements")
+    if mont.device.type == "cpu":
+        return plain_digits(mont)
+    out = torch.empty((4, k), dtype=torch.int32, device=mont.device)
+    kernels.launch("mont_digits", "stark_mont_digits", kernels.ptr(mont), kernels.ptr(out), k,
+                   device=mont.device, size=k)
     return out
 
 
@@ -141,13 +188,15 @@ def merkle_subtrees(level: torch.Tensor, depth: int) -> torch.Tensor:
     return out
 
 
-def tree_levels(digits: torch.Tensor, tail_width: int):
-    """All levels from the (4, n) digits, n a power of two: the (8, w)
-    levels for w = n .. tail_width (kept on the device for openings) and
-    the (8,) root words.  The levels wider than SUBTREE_WIDTH come from the
-    level kernel, those down to TOP_WIDTH from one launch of the subtrees
-    kernel, the rest from one launch of the top kernel."""
-    cur = merkle_leaves(digits.contiguous())
+def tree_levels(values: torch.Tensor, tail_width: int, *, mont: bool = False):
+    """All levels from the (4, n) digits, or with ``mont`` the (8, n)
+    Montgomery codeword, n a power of two: the (8, w) levels for w = n ..
+    tail_width (kept on the device for openings) and the (8,) root words.
+    The leaves come from K4 (:func:`merkle_leaves` or
+    :func:`merkle_leaves_mont`), the levels wider than SUBTREE_WIDTH from
+    the level kernel, those down to TOP_WIDTH from one launch of the
+    subtrees kernel, the rest from one launch of the top kernel."""
+    cur = (merkle_leaves_mont if mont else merkle_leaves)(values.contiguous())
     levels = [cur]
     while cur.shape[1] > SUBTREE_WIDTH:
         cur = merkle_level(cur)

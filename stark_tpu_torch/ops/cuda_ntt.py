@@ -31,13 +31,19 @@ import torch
 
 from ..field import FieldElement
 from ..params import NUM_LIMBS, P
+from . import cuda_field
 from . import field_ops as fo
 from . import kernels
 from .limbs import _bit_reverse_indices, _mont_pack, _power_table, from_numpy
 
-#: smallest transform the CUDA passes take (R = 64, C = 128); smaller
-#: transforms go to the host NTT, as in the JAX package
+#: smallest transform the prover hands to the four-step plan on every
+#: device (R = 64, C = 128); the host NTT takes the smaller host-list
+#: transforms, as in the JAX package
 CUDA_NTT_MIN_SIZE = 1 << 13
+#: smallest transform the passes take (R = C = 8: one cluster of columns,
+#: a cluster's share of rows); on the card the device trace
+#: interpolation's transforms run on them from here
+FOUR_STEP_MIN_SIZE = 1 << 6
 #: longest size-L pass the kernels hold in shared memory
 MAX_PASS_LEN = 1 << 12
 
@@ -163,9 +169,9 @@ def _check_pass(x, R, C, tables, row_len, col_len, row, col):
         _check("col", col, (NUM_LIMBS, col_len), dev)
     if dev.type == "cuda":
         n = R * C
-        if n < CUDA_NTT_MIN_SIZE or n & (n - 1) or max(R, C) > MAX_PASS_LEN:
-            raise ValueError(f"the CUDA NTT passes take power-of-two n >= {CUDA_NTT_MIN_SIZE} "
-                             f"with R, C <= {MAX_PASS_LEN}; got R={R}, C={C}")
+        if n < FOUR_STEP_MIN_SIZE or n & (n - 1) or min(R, C) < CLUSTER_BLOCKS or max(R, C) > MAX_PASS_LEN:
+            raise ValueError(f"the CUDA NTT passes take power-of-two n >= {FOUR_STEP_MIN_SIZE} "
+                             f"with {CLUSTER_BLOCKS} <= R, C <= {MAX_PASS_LEN}; got R={R}, C={C}")
 
 
 def ntt_pass1(x, tw, w, row=None, col=None) -> torch.Tensor:
@@ -242,8 +248,8 @@ class CudaNTT:
     """Four-step NTT/INTT of size n = R * C on one device."""
 
     def __init__(self, n: int, device) -> None:
-        if n & (n - 1) or n < CUDA_NTT_MIN_SIZE:
-            raise ValueError(f"size must be a power of two >= {CUDA_NTT_MIN_SIZE}")
+        if n & (n - 1) or n < FOUR_STEP_MIN_SIZE:
+            raise ValueError(f"size must be a power of two >= {FOUR_STEP_MIN_SIZE}")
         logn = n.bit_length() - 1
         self.n = n
         self.R = 1 << (logn // 2)
@@ -263,15 +269,17 @@ class CudaNTT:
 
     def _build_w_table(self, inverse: bool) -> torch.Tensor:
         """W[k1, j2] = omega^(+-k1*j2), (8, R, C) Montgomery, built on the
-        device from the bits of j2 (log2(C) batched multiplies)."""
+        device from the bits of j2 (log2(C) products of the whole table,
+        K10 on the card)."""
         base = pow(self.omega, -1, P) if inverse else self.omega
         j2 = torch.arange(self.C, device=self.device)
-        acc = from_numpy(_mont_pack([1]), self.device)[:, :, None].expand(NUM_LIMBS, self.R, self.C)
+        shape = (NUM_LIMBS, self.R, self.C)
+        acc = from_numpy(_mont_pack([1]), self.device)[:, :, None].expand(shape).contiguous()
         for bit in range(self.C.bit_length() - 1):
             step = pow(base, 1 << bit, P)
-            factor = from_numpy(_mont_pack(_power_table(step, self.R)), self.device)[:, :, None]
-            mult = fo.mont_mul(acc, factor)
-            acc = torch.where((((j2 >> bit) & 1) == 1)[None, None, :], mult, acc)
+            factor = from_numpy(_mont_pack(_power_table(step, self.R)), self.device)[:, :, None].expand(shape)
+            mult = cuda_field.mont_mul(acc.reshape(NUM_LIMBS, self.n), factor.reshape(NUM_LIMBS, self.n).contiguous())
+            acc = torch.where((((j2 >> bit) & 1) == 1)[None, None, :], mult.reshape(shape), acc)
         return acc.contiguous()
 
     def _row_col_tables(self, offset: int, inverse: bool):

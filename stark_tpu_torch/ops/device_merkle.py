@@ -172,7 +172,9 @@ def top_slabs(flat: torch.Tensor, w: int) -> List[torch.Tensor]:
 
 
 def plain_digits(mont: torch.Tensor) -> torch.Tensor:
-    """(8, n) Montgomery limbs -> (4, n) ``int32`` plain base-2^32 digits."""
+    """(8, n) Montgomery limbs -> (4, n) ``int32`` plain base-2^32 digits:
+    the plain version of :func:`stark_tpu_torch.ops.cuda_merkle.mont_digits`,
+    which the prover calls."""
     plain = fo.from_mont(mont).to(torch.int64)
     return (plain[0::2] | (plain[1::2] << 16)).to(torch.int32)
 
@@ -181,12 +183,13 @@ def tree_arrays_with_root(mont: torch.Tensor, n: int):
     """Whole-tree build including the root: ``(levels, root_words)`` with
     ``levels`` the (8, w) digest levels from the leaves down to TAIL_WIDTH
     and ``root_words`` the (8,) root.  Hashing runs through the leaf and
-    level kernels on the card (their plain versions on the CPU)."""
+    level kernels on the card (their plain versions on the CPU), the leaf
+    kernel reading the Montgomery codeword itself."""
     from .cuda_merkle import tree_levels
 
     if int(mont.shape[1]) != n:
         raise ValueError(f"codeword has {int(mont.shape[1])} leaves, expected {n}")
-    return tree_levels(plain_digits(mont), TAIL_WIDTH)
+    return tree_levels(mont, TAIL_WIDTH, mont=True)
 
 
 def _digest_bytes(words: np.ndarray) -> bytes:

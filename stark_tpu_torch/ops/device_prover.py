@@ -16,13 +16,18 @@ the large FRI rounds run as the fused commit cascade
 
 Coefficients that never lived on the host (device trace interpolation,
 :mod:`stark_tpu_torch.ops.geometric_device`) extend through
-:meth:`DeviceProverCore.extend_mont`.  Power tables and inversions run
-through the field vector kernels (:mod:`stark_tpu_torch.ops.cuda_field`:
-K9 and K7 on the card).
+:meth:`DeviceProverCore.extend_mont`.  Power tables, inversions and the
+conversions into Montgomery form run through the field vector kernels
+(:mod:`stark_tpu_torch.ops.cuda_field`: K9, K7 and K10 on the card), the
+combination through K11 (:mod:`stark_tpu_torch.ops.cuda_combination`),
+the conversion out of it through ``mont_digits``
+(:func:`stark_tpu_torch.ops.cuda_merkle.mont_digits`).  No function of
+:mod:`stark_tpu_torch.ops.field_ops` runs on a CUDA tensor here.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Dict, List, Sequence, Tuple
 
@@ -31,13 +36,14 @@ import torch
 
 from ..merkle import MerkleTree
 from ..params import NUM_LIMBS, P
-from . import cuda_field, device_merkle
+from . import cuda_combination, cuda_field, device_merkle
 from . import field_ops as fo
 from .backend import best_plan
 from .cuda_fold import fri_fold
 from .cuda_fs import fs_round
+from .cuda_merkle import mont_digits
 from .device_fs import APPENDED_BYTES
-from .device_merkle import TAIL_WIDTH, DeviceMerkleTree, plain_digits, tree_arrays_with_root
+from .device_merkle import TAIL_WIDTH, DeviceMerkleTree, tree_arrays_with_root
 from .limbs import from_numpy, mont_tensor, pack, to_numpy
 
 
@@ -49,7 +55,7 @@ from .limbs import from_numpy, mont_tensor, pack, to_numpy
 def mont_to_digits(mont: torch.Tensor) -> np.ndarray:
     """Device (8, n) Montgomery tensor -> host (n, 4) uint32 digit rows —
     the exact input of the native serialize+hash Merkle path."""
-    return np.ascontiguousarray(to_numpy(plain_digits(mont)).T)
+    return np.ascontiguousarray(to_numpy(mont_digits(mont.contiguous())).T)
 
 
 def digits_value(digits: np.ndarray, i: int) -> int:
@@ -107,7 +113,7 @@ class DeviceCodeword:
         if not idx:
             return [], None
         cols = self.mont[:, torch.tensor(idx, device=self.mont.device)]
-        return idx, plain_digits(cols)
+        return idx, mont_digits(cols.contiguous())
 
     def absorb_values(self, idx, digits_cols: np.ndarray) -> None:
         """Fill the value cache from a fetched (4, K) digit gather."""
@@ -194,6 +200,32 @@ def pad_rows(arr: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([arr, torch.zeros((rows - r,) + tuple(arr.shape[1:]), dtype=arr.dtype, device=arr.device)])
 
 
+#: device -> the (8, 256) Montgomery table of b * 2^128 mod p, b < 256
+_B0_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def be17_mont(raw: bytes, device) -> torch.Tensor:
+    """Concatenated 17-byte big-endian chunks -> (8, N) Montgomery limbs of
+    ``int.from_bytes(chunk, "big") % p`` on ``device``: the Montgomery form
+    of :func:`stark_tpu_torch.ops.limbs.pack_be17`'s values.  The host
+    only splits bytes into 32-bit digits (half the bytes of the limbs to
+    upload); v = b0 * 2^128 + v0 with b0 the leading byte, and on the
+    device v0 goes into Montgomery form by one K10 product by R^2
+    (canonical for any v0 < 2^128, so no subtraction first), then one K10
+    sum adds the Montgomery form of b0 * 2^128 mod p from a 256-entry
+    table."""
+    a = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 17)
+    dev = torch.device(device)
+    b0 = torch.from_numpy(a[:, 0].astype(np.int64)).to(dev)
+    le = np.ascontiguousarray(a[:, 1:][:, ::-1])
+    digits = from_numpy(np.ascontiguousarray(le.view("<u4").T), dev).to(torch.int64) & 0xFFFFFFFF
+    v0 = torch.stack([digits[k // 2] >> (16 * (k % 2)) & 0xFFFF for k in range(NUM_LIMBS)]).to(torch.int32)
+    table = _B0_TABLES.get(dev)
+    if table is None:
+        table = _B0_TABLES[dev] = mont_tensor([(b << 128) % P for b in range(256)], dev)
+    return cuda_field.add(cuda_field.to_mont(v0), table[:, b0].contiguous())
+
+
 def degree_probe_with(core, restrict_iszero_raw, stack: torch.Tensor, tabs=None) -> List[int]:
     """Degrees of a (k, 8, n) stack of codewords with one (k,)-int fetch:
     restrict each to coefficients and reduce max(index of nonzero) on the
@@ -249,8 +281,9 @@ class DeviceProverCore:
     def extend(self, coeffs) -> torch.Tensor:
         """Coefficients (plain ints lowest first, a packed (8, m) uint32
         limb array, or an (8, m) int32 plain limb tensor on the device) ->
-        (8, n) Montgomery codeword over the coset {offset * omega^i}; the
-        zero padding to n happens on the device."""
+        (8, n) Montgomery codeword over the coset {offset * omega^i}.  The
+        m coefficients go into Montgomery form on the device (one K10
+        product by R^2), then :meth:`extend_mont` pads them to n there."""
         if isinstance(coeffs, torch.Tensor):
             dev = coeffs.to(self.device)
         else:
@@ -259,9 +292,9 @@ class DeviceProverCore:
         m = int(dev.shape[1])
         if m > self.n:
             raise ValueError("coefficient vector longer than the domain")
-        if m < self.n:
-            dev = torch.cat([dev, torch.zeros((NUM_LIMBS, self.n - m), dtype=torch.int32, device=self.device)], dim=1)
-        return self.plan.apply(fo.to_mont(dev), self._fwd_tabs, False)
+        if m == 0:  # the zero polynomial
+            return torch.zeros((NUM_LIMBS, self.n), dtype=torch.int32, device=self.device)
+        return self.extend_mont(cuda_field.to_mont(dev.contiguous()))
 
     def extend_mont(self, coeffs_mont: torch.Tensor) -> torch.Tensor:
         """Montgomery coefficients (8, m) on the device -> (8, n) codeword
@@ -280,10 +313,10 @@ class DeviceProverCore:
 
     def extend_codeword_be17(self, raw: bytes) -> DeviceCodeword:
         """Randomizer path: concatenated 17-byte big-endian rng chunks ->
-        extended codeword, with the byte -> limb unpack and the mod-p
-        reduction on the device (same codeword as
+        extended codeword, with the mod-p reduction into Montgomery form on
+        the device (:func:`be17_mont`; same codeword as
         ``extend_codeword(pack_be17(raw))``)."""
-        return DeviceCodeword(self.extend(fo.be17_device_limbs(raw, self.device)), self)
+        return DeviceCodeword(self.extend_mont(be17_mont(raw, self.device)), self)
 
     def restrict_iszero(self, cw_mont: torch.Tensor) -> np.ndarray:
         """Codeword -> is-zero bitmap of its coefficient vector."""
@@ -395,49 +428,13 @@ class DeviceProverCore:
 
         Returns (combination, stacked transition-quotient codewords).
         ``structure``: per constraint, a tuple of (state-tail exponent
-        tuple, group-codeword index)."""
+        tuple, group-codeword index), encoded once a key into a
+        :class:`~stark_tpu_torch.ops.cuda_combination.Program` (a
+        ``ValueError`` beyond the kernel's limits); the function runs it as
+        one K11 launch on the card, its plain interpreter on the CPU."""
         key = (structure, num_bq, expansion)
         fn = self._comb_cache.get(key)
-        if fn is not None:
-            return fn
-
-        def comb_fn(trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs, bq_shift_tabs):
-            next_cws = [torch.roll(cw, -expansion, dims=-1) for cw in trace_cws]
-            state = list(trace_cws) + next_cws
-            pow_cache: Dict[Tuple[int, int], torch.Tensor] = {}
-
-            def pow_col(i: int, e: int) -> torch.Tensor:
-                if e == 1:
-                    return state[i]
-                if (i, e) not in pow_cache:
-                    half = pow_col(i, e // 2)
-                    sq = fo.mont_mul(half, half)
-                    if e & 1:
-                        sq = fo.mont_mul(sq, state[i])
-                    pow_cache[(i, e)] = sq
-                return pow_cache[(i, e)]
-
-            airs = []
-            for groups in structure:
-                acc = None
-                for tail, gi in groups:
-                    term = group_cws[gi]
-                    for i, e in enumerate(tail):
-                        if e:
-                            term = fo.mont_mul(term, pow_col(i, e))
-                    acc = term if acc is None else fo.add(acc, term)
-                airs.append(acc)
-
-            tqs = [fo.mont_mul(a, tz_invs[i]) for i, a in enumerate(airs)]
-            comb = fo.mont_mul(weights[:, 0:1], rand_cw)
-            k = 1
-            for cws, tabs in ((tqs, tq_shift_tabs), (bq_cws, bq_shift_tabs)):
-                for i, cw in enumerate(cws):
-                    comb = fo.add(comb, fo.mont_mul(weights[:, k : k + 1], cw))
-                    shifted = fo.mont_mul(tabs[i], cw)
-                    comb = fo.add(comb, fo.mont_mul(weights[:, k + 1 : k + 2], shifted))
-                    k += 2
-            return comb, torch.stack(tqs)
-
-        self._comb_cache[key] = comb_fn
-        return comb_fn
+        if fn is None:
+            program = cuda_combination.encode(structure, num_bq, expansion)
+            fn = self._comb_cache[key] = functools.partial(cuda_combination.combination, program)
+        return fn

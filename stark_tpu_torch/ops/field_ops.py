@@ -26,11 +26,10 @@ counterpart here.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, P, P_TOP, R2_MOD_P, R_MOD_P
-from .limbs import _b0_table, from_numpy, limbs_of, pack, to_numpy, unpack
+from .limbs import from_numpy, limbs_of, pack, to_numpy, unpack
 
 _P9 = limbs_of(P) + [0]
 
@@ -231,27 +230,3 @@ def mont_inv(a: torch.Tensor) -> torch.Tensor:
     total = unpack(to_numpy(before[:, -1:]))[0]
     total_inv = from_numpy(pack([pow(total, -1, P) * R2_MOD_P % P]), a.device)
     return torch.where(zero, a, mont_mul(others, total_inv))
-
-
-def _digit_limbs(d: torch.Tensor) -> torch.Tensor:
-    """(4, *batch) int64 base-2^32 digits -> (8, *batch) 16-bit limbs."""
-    return torch.stack([d[k // 2] >> (LIMB_BITS * (k % 2)) & LIMB_MASK for k in range(NUM_LIMBS)])
-
-
-def be17_device_limbs(raw: bytes, device) -> torch.Tensor:
-    """Concatenated 17-byte big-endian chunks -> (8, N) canonical plain
-    limbs of ``int.from_bytes(chunk, "big") % p`` on ``device``.  The host
-    only splits bytes into 32-bit digits (2.5 MB uploaded instead of 16 MB
-    of limbs at 2^19 chunks); the reduction runs on the device: v = b0 *
-    2^128 + v0 with b0 the leading byte, v0 < 2^128 < 2p takes one
-    conditional subtraction, b0 * 2^128 mod p comes from the 256-entry
-    table of :func:`stark_tpu_torch.ops.limbs.pack_be17`, whose values this
-    returns."""
-    a = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 17)
-    b0 = torch.from_numpy(a[:, 0].astype(np.int64)).to(device)
-    le = np.ascontiguousarray(a[:, 1:][:, ::-1])
-    digits = from_numpy(np.ascontiguousarray(le.view("<u4").T), device).to(torch.int64) & 0xFFFFFFFF
-    v0 = _digit_limbs(digits)
-    v0 = _canonicalize(torch.cat([v0, torch.zeros_like(v0[:1])]))
-    table = _digit_limbs(torch.from_numpy(_b0_table().T.astype(np.int64)).to(device))  # (8, 256)
-    return add(v0, table[:, b0])

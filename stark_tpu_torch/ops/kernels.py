@@ -31,7 +31,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("field.cuh", "blake2b.cuh", "ntt.cu", "merkle.cu", "fold.cu", "fs.cu", "fieldvec.cu", "rescue.cu",
-            "probes.cu")
+            "probes.cu", "combination.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stark_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +48,8 @@ _SIGNATURES = {
     "stark_ntt_pass2": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     "stark_ntt_occupancy": [_I, _I, _I, _I, _PI, _PI, _PI, _PI],
     "stark_merkle_leaves": [_P, _P, _I64, _P],
+    "stark_merkle_leaves_mont": [_P, _P, _I64, _P],
+    "stark_mont_digits": [_P, _P, _I64, _P],
     "stark_merkle_level": [_P, _P, _I64, _P],
     "stark_merkle_top": [_P, _P, _I64, _P],
     "stark_merkle_subtrees": [_P, _P, _I64, _I, _P],
@@ -59,6 +61,8 @@ _SIGNATURES = {
     "stark_geometric_step_bits": [_I64],
     "stark_mont_binary": [_P, _P, _P, _I64, _I, _I, _I, _P],
     "stark_rescue_permutation": [_P, _P, _P, _I64, _I, _P],
+    "stark_combination": [_P, _P],
+    "stark_combination_params_size": [],
     "stark_probe_mont13_chain": [_P, _P, _P, _I64, _I64, _I64, _P],
     "stark_probe_mont_chain": [_P, _P, _P, _I64, _I64, _I64, _P],
     "stark_probe_mont16_chain": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
@@ -75,14 +79,14 @@ PROBES = ("probe_mont13_chain", "probe_mont_chain", "probe_mont16_chain/base", "
 LAUNCHES: Dict[str, int] = {
     "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_subtrees": 0, "merkle_top": 0,
     "fri_fold": 0, "fs_round": 0, "mont_inv": 0, "prefix_mul": 0, "geometric_table": 0, "mont_binary": 0,
-    "rescue_permutation": 0,
+    "rescue_permutation": 0, "combination": 0, "mont_digits": 0,
     **{name: 0 for name in PROBES},
 }
 #: size of the launch -> kernel name -> launches since the last reset: the
 #: transform's points (NTT passes), the leaves or the input level's width
 #: (Merkle kernels and B4), the codeword's length (fold), the body's bytes
-#: (fs_round), the elements (field kernels, B1-B3) or the instances
-#: (rescue_permutation)
+#: (fs_round), the elements (field kernels, the digit conversion, B1-B3),
+#: the instances (rescue_permutation) or the points (combination)
 LAUNCHES_BY_SIZE: Dict[int, Dict[str, int]] = {}
 
 _lock = threading.Lock()

@@ -69,7 +69,7 @@ def pack_be17(raw: bytes) -> np.ndarray:
     < 2p needs one conditional subtraction, and b0 * 2^128 mod p comes
     from a 256-entry digit table; their mod-p sum is the canonical
     residue.  The device version is
-    :func:`stark_tpu_torch.ops.field_ops.be17_device_limbs`."""
+    :func:`stark_tpu_torch.ops.device_prover.be17_mont`."""
     from .. import hostops as ho
 
     a = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 17)

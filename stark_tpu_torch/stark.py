@@ -715,7 +715,7 @@ class Stark:
         codewords (16 MB each at 2^20) over the host link.  Returns, per
         constraint, a list of (tail, {index: base value}) or None for
         small constraints (dict evaluation stays cheaper)."""
-        from .ops.device_merkle import plain_digits
+        from .ops.cuda_merkle import mont_digits
         from .ops.device_prover import digits_value
         from .ops.limbs import to_numpy
 
@@ -726,7 +726,7 @@ class Stark:
         idx = sorted(set(int(i) for i in indices))
         sel = torch.tensor(idx, device=core.device)
         cols = torch.cat([cw[:, sel] for cw in group_cws], dim=1)
-        digits = to_numpy(plain_digits(cols)).T  # (G * K, 4), group-major
+        digits = to_numpy(mont_digits(cols.contiguous())).T  # (G * K, 4), group-major
         k = len(idx)
         out = []
         for s in range(len(transition_constraints)):
@@ -1113,55 +1113,70 @@ class Stark:
         max_degree,
         tq_bounds,
         bq_bounds,
+        prof,
     ):
-        """Evaluation-space combination as one device executable; returns a
-        DeviceCodeword.  Same algebra as :meth:`_combination_evaluation`
-        (identical transcripts), but no codeword ever reaches the host."""
+        """Evaluation-space combination as one device executable (K11 on
+        the card); returns a DeviceCodeword.  Same algebra as
+        :meth:`_combination_evaluation` (identical transcripts), but no
+        codeword ever reaches the host.  ``prof`` (the prove's
+        :class:`~stark_tpu_torch.utils.profiling.Timer`) gets the
+        sub-regions ``combination/air_groups``, ``/tz_inv``,
+        ``/shift_tables``, ``/trace_extend``, ``/kernel`` and
+        ``/degree_probe``, each with the device time of what it queues."""
         from .ops.device_prover import DeviceCodeword
         from .ops.limbs import mont_tensor
 
+        def region(name):
+            return prof.region(f"combination/{name}", core.device)
+
         omega = self.omega.value
-        group_cws, structure = self._device_air_groups(
-            core, transition_constraints
-        )
-        tz_invs = tuple(
-            self._device_tz_inv(core, self._exemption_list(i))
-            for i in range(len(transition_constraints))
-        )
-        tq_tabs = tuple(
-            core.shift_table(max_degree - b, omega) for b in tq_bounds
-        )
-        bq_tabs = tuple(
-            core.shift_table(max_degree - b, omega) for b in bq_bounds
-        )
-        weights_mont = mont_tensor([w.value for w in weights], core.device)
+        with region("air_groups"):
+            group_cws, structure = self._device_air_groups(
+                core, transition_constraints
+            )
+        with region("tz_inv"):
+            tz_invs = tuple(
+                self._device_tz_inv(core, self._exemption_list(i))
+                for i in range(len(transition_constraints))
+            )
+        with region("shift_tables"):
+            tq_tabs = tuple(
+                core.shift_table(max_degree - b, omega) for b in tq_bounds
+            )
+            bq_tabs = tuple(
+                core.shift_table(max_degree - b, omega) for b in bq_bounds
+            )
+            weights_mont = mont_tensor([w.value for w in weights], core.device)
 
-        trace_cws = tuple(
-            # host Polynomial, or a device-resident Montgomery coefficient
-            # tensor from the device trace interpolation
-            core.extend(tp.coeffs) if hasattr(tp, "coeffs")
-            else core.extend_mont(tp)
-            for tp in trace_polynomials
-        )
+        with region("trace_extend"):
+            trace_cws = tuple(
+                # host Polynomial, or a device-resident Montgomery
+                # coefficient tensor from the device trace interpolation
+                core.extend(tp.coeffs) if hasattr(tp, "coeffs")
+                else core.extend_mont(tp)
+                for tp in trace_polynomials
+            )
 
-        fn = core.combination_fn(
-            structure, len(bq_codewords), self.expansion_factor
-        )
-        comb_mont, tq_stack = fn(
-            trace_cws,
-            group_cws,
-            tz_invs,
-            randomizer_codeword.mont,
-            tuple(cw.mont for cw in bq_codewords),
-            weights_mont,
-            tq_tabs,
-            bq_tabs,
-        )
+        with region("kernel"):
+            fn = core.combination_fn(
+                structure, len(bq_codewords), self.expansion_factor
+            )
+            comb_mont, tq_stack = fn(
+                trace_cws,
+                group_cws,
+                tz_invs,
+                randomizer_codeword.mont,
+                tuple(cw.mont for cw in bq_codewords),
+                weights_mont,
+                tq_tabs,
+                bq_tabs,
+            )
 
         # degree check, reduced on device to one (k,)-int fetch (zero
         # poly -> degree 0, matching the host quirk); reference:
         # stark.rs:379-380
-        tq_degrees = core.degree_probe(tq_stack)
+        with region("degree_probe"):
+            tq_degrees = core.degree_probe(tq_stack)
         if tq_degrees != list(tq_bounds):
             raise ValueError(
                 f"transition quotient degrees {tq_degrees} do not match "
@@ -1224,14 +1239,12 @@ class Stark:
                 from .ops import cuda_field as cf
                 from .ops.geometric_device import device_geometric_interpolate
                 from .ops.limbs import from_numpy, pack
-                from .params import R2_MOD_P
 
-                # REDC(a * R^2) = a * R: a column into Montgomery form
-                r2 = from_numpy(pack([R2_MOD_P]), core.device)
                 trace_polynomials = []
                 for s in range(self.num_registers):
                     column = [trace[c][s].value for c in range(len(trace))]
-                    col_mont = cf.mont_mul(from_numpy(pack(column), core.device), r2)
+                    # REDC(a * R^2) = a * R: one K10 product on the card
+                    col_mont = cf.to_mont(from_numpy(pack(column), core.device))
                     trace_polynomials.append(
                         device_geometric_interpolate(
                             col_mont, 1, self.omicron.value
@@ -1345,6 +1358,7 @@ class Stark:
                 max_degree,
                 tq_bounds,
                 bq_bounds,
+                prof=prof,
             )
 
         with prof.region("fri"):

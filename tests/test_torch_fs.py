@@ -6,7 +6,8 @@
 * ``hex_words`` and ``alpha_mont_from_fs`` against the JAX ``device_fs``;
 * the plain fold against the Pallas fold kernel (interpret mode) and the
   JAX XLA fold;
-* ``be17_device_limbs`` against the JAX package's ``pack_be17``;
+* the randomizer's reduction on the device (``device_prover.be17_mont``,
+  Montgomery limbs) against the JAX package's ``pack_be17``;
 * the kernel wrappers' input checks and CPU dispatch;
 * a 2^14 FRI prove through the port's cascade against ``stark_tpu``'s
   host FRI (transcript objects and indices), at least 2 rounds fused;
@@ -29,6 +30,7 @@ import torch
 from stark_tpu.field import FieldElement as JaxFieldElement
 from stark_tpu.fri import Fri as HostFri
 from stark_tpu.models.fibonacci import FibonacciStark as HostFibonacciStark
+from stark_tpu.ops import field_ops as jax_field_ops
 from stark_tpu.ops.limbs import pack, pack_be17
 from stark_tpu.params import GENERATOR, P, R_MOD_P
 from stark_tpu.poly import Polynomial as HostPolynomial
@@ -38,10 +40,9 @@ from stark_tpu_torch.field import FieldElement
 from stark_tpu_torch.fri import Fri
 from stark_tpu_torch.models.fibonacci import FibonacciStark
 from stark_tpu_torch.ops import cuda_fold, cuda_fs, device_merkle
-from stark_tpu_torch.ops import field_ops as tfo
 from stark_tpu_torch.ops.device_fs import alpha_mont_from_fs, fs_round_plain, hex_words
 from stark_tpu_torch.ops.device_keccak import shake256_words
-from stark_tpu_torch.ops.device_prover import DeviceProverCore
+from stark_tpu_torch.ops.device_prover import DeviceProverCore, be17_mont
 from stark_tpu_torch.ops.fold import fold_mont
 from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, to_numpy
 from stark_tpu_torch.proof_stream import ProofStream
@@ -119,8 +120,8 @@ def test_be17_device_limbs_match_pack_be17():
     raw[17:34] = bytes(17)
     raw[34:51] = b"\x00" + b"\xff" * 16
     raw = bytes(raw)
-    got = to_numpy(tfo.be17_device_limbs(raw, "cpu"))
-    assert np.array_equal(got, pack_be17(raw))
+    got = to_numpy(be17_mont(raw, "cpu"))
+    assert np.array_equal(got, np.asarray(jax_field_ops.to_mont(jnp.asarray(pack_be17(raw)))))
     from stark_tpu_torch.ops.limbs import pack_be17 as port_pack_be17
 
     assert np.array_equal(port_pack_be17(raw), pack_be17(raw))

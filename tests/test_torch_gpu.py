@@ -66,8 +66,8 @@ def test_ntt_passes_match_plain(cuda, logn, inverse, offset):
 def test_ntt_kernels_refuse_small_transforms(cuda):
     from stark_tpu_torch.ops import cuda_ntt
 
-    x = torch.zeros((8, 32, 64), dtype=torch.int32, device=cuda)
-    tw = torch.zeros((8, 32), dtype=torch.int32, device=cuda)
+    x = torch.zeros((8, 4, 8), dtype=torch.int32, device=cuda)  # R = 4: less than a cluster's 8 rows
+    tw = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         cuda_ntt.ntt_pass1(x, tw, x)
 
@@ -574,3 +574,125 @@ def test_probe_level_kernels_match_plain(cuda, w):
         got = _launched(kernel, lambda: cuda_probes.level_rounds(level, r))
         assert torch.equal(got, cuda_probes.level_rounds_plain(level, r))
     assert torch.equal(got, cuda_merkle.merkle_level(level))
+
+
+# -- the combination (K11), the Montgomery-input leaves, the digit conversion,
+# the small four-step transforms, and no plain arithmetic on a prove's path
+
+FIB_STRUCTURE = ((((0, 0, 1, 0), 0), ((1, 0, 0, 0), 1), ((0, 1, 0, 0), 2)),
+                 (((0, 0, 0, 1), 3), ((1, 0, 0, 0), 4)))
+# one group of each tail shape of the Rescue chain's AIR, 3 constraints
+CHAIN_SHAPES = ((((), 0), ((3, 0, 0, 0), 1), ((0, 0, 2, 1), 2), ((0, 0, 0, 2), 3)),
+                (((0, 0, 1, 2), 4), ((0, 0, 1, 0), 5)),
+                (((0, 0, 0, 1), 6), ((1, 0, 0, 0), 7)))
+
+
+@pytest.mark.parametrize("logn", [13, 20])
+@pytest.mark.parametrize("name", ["fib", "chain_shapes"])
+def test_combination_kernel_matches_plain(cuda, name, logn):
+    from stark_tpu_torch.ops import cuda_combination as cc
+
+    structure = FIB_STRUCTURE if name == "fib" else CHAIN_SHAPES
+    n, k, groups = 1 << logn, len(structure), 1 + max(gi for c in structure for _, gi in c)
+    cws = iter(range(1000))
+    col = lambda: _mont(n, logn * 1000 + next(cws), cuda)  # noqa: E731
+    trace, group_cws, tz = [col(), col()], [col() for _ in range(groups)], col()
+    args = (trace, group_cws, [tz] * k, col(), [col(), col()], _mont(1 + 2 * (k + 2), logn, cuda),
+            [col() for _ in range(k)], [col(), col()])
+    program = cc.encode(structure, 2, 4)
+    comb, tqs = _launched("combination", lambda: cc.combination(program, *args))
+    want_comb, want_tqs = cc.combination_plain(program, *args)
+    assert torch.equal(comb, want_comb) and torch.equal(tqs, want_tqs)
+
+
+@pytest.mark.parametrize("n", [1, 7, 2047, 65545, 1 << 20])
+def test_mont_leaves_and_mont_digits_match_plain(cuda, n):
+    from stark_tpu_torch.ops import cuda_merkle
+    from stark_tpu_torch.ops import device_merkle as dm
+
+    mont = _field_mont(n, n, cuda)
+    leaves = _launched("merkle_leaves", lambda: cuda_merkle.merkle_leaves_mont(mont))
+    assert torch.equal(leaves, cuda_merkle.merkle_leaves_mont_plain(mont))
+    digits = _launched("mont_digits", lambda: cuda_merkle.mont_digits(mont))
+    assert torch.equal(digits, dm.plain_digits(mont))
+    assert torch.equal(leaves, cuda_merkle.merkle_leaves(digits))
+
+
+@pytest.mark.parametrize("logn", range(6, 13))
+@pytest.mark.parametrize("inverse, offset", [(False, 1), (True, 1), (False, GENERATOR), (True, GENERATOR)])
+def test_small_four_step_transforms_match_plain(cuda, logn, inverse, offset):
+    """The sizes the device trace interpolation now runs on the passes
+    (64 to 4096 points), whole transforms against the stage-by-stage plan."""
+    from stark_tpu_torch.ops import backend
+    from stark_tpu_torch.ops.ntt import NTTPlan
+
+    n = 1 << logn
+    plan = backend.best_plan(n, cuda)
+    a = _mont(n, logn, cuda)
+    got = plan.apply(a, plan.op_tables(inverse, offset), inverse)
+    stage = NTTPlan(n, "cpu")
+    want = stage.apply(a.cpu(), stage.op_tables(inverse, offset), inverse)
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError):
+        backend.best_plan(32, cuda)
+
+
+@pytest.mark.parametrize("entry", ["rs_extend", "rs_restrict", "poly_multiply", "fri_fold"])
+def test_backend_host_list_entry_points_match_the_host(cuda, entry):
+    """TorchBackend's host-list entry points convert and multiply on K10
+    (no plain arithmetic on the card), against the host NTT at 2^13."""
+    from stark_tpu_torch.fri import Fri
+    from stark_tpu_torch.ntt import NTT, poly_multiply
+    from stark_tpu_torch.ops import guard, kernels
+    from stark_tpu_torch.ops.backend import TorchBackend
+
+    n = 1 << 13
+    rng = np.random.default_rng(n)
+    vals = [int(v) % P for v in rng.integers(0, 1 << 62, n)]
+    backend = TorchBackend(cuda)
+    omega = FieldElement.primitive_nth_root(n).value
+    want = {"rs_extend": lambda: NTT(n).coset_evaluate(vals, GENERATOR),
+            "rs_restrict": lambda: NTT(n).coset_interpolate(vals, GENERATOR),
+            "poly_multiply": lambda: poly_multiply(vals[: n // 2], vals[n // 2 :]),
+            "fri_fold": lambda: Fri._fold_host(vals, 12345, GENERATOR, omega)}[entry]()
+    before = kernels.LAUNCHES["mont_binary"]
+    with guard.count_plain_calls() as plain:
+        got = {"rs_extend": lambda: backend.rs_extend(vals, n, GENERATOR),
+               "rs_restrict": lambda: backend.rs_restrict(vals, GENERATOR),
+               "poly_multiply": lambda: backend.poly_multiply(vals[: n // 2], vals[n // 2 :]),
+               "fri_fold": lambda: backend.fri_fold(vals, 12345, GENERATOR, omega)}[entry]()
+    assert got == want
+    assert sum(plain.values()) == 0, dict(plain)
+    assert kernels.LAUNCHES["mont_binary"] >= before + 2
+
+
+@pytest.mark.parametrize("model", ["fib-1000", "rescue-chain-4"])
+def test_proves_on_the_card_call_no_plain_arithmetic(cuda, model):
+    """No function of field_ops runs on a CUDA tensor in a prove (cold: the
+    core and plans built inside it), K11 launched once, the proof the host
+    prover's bytes."""
+    from stark_tpu_torch.models.fibonacci import FibonacciStark
+    from stark_tpu_torch.models.rescue_chain import RescueChainStark
+    from stark_tpu_torch.ops import cuda_ntt, device_prover, guard, kernels
+
+    def build(device):
+        if model == "fib-1000":
+            return FibonacciStark(1000, device=device, rng=DeterministicRandom(11))
+        return RescueChainStark(4, device=device, rng=DeterministicRandom(21))
+
+    def prove(m):
+        return m.prove(FieldElement(3), FieldElement(7)) if model == "fib-1000" else m.prove(FieldElement(77))
+
+    want = prove(build(None))
+    device_prover._CORE_CACHE.clear()
+    cuda_ntt._cuda_plan.cache_clear()
+    card = build(cuda)
+    card.stark.backend.device_prover_min = 512
+    assert card.stark._use_device_pipeline()
+    kernels.reset_launch_counts()
+    with guard.count_plain_calls() as plain:
+        got = prove(card)
+    assert sum(plain.values()) == 0, dict(plain)
+    assert got == want
+    assert kernels.LAUNCHES["combination"] == 1
+    assert kernels.LAUNCHES["mont_digits"] > 0

@@ -162,7 +162,7 @@ def test_pass_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         cuda_ntt.ntt_pass2(x.transpose(1, 2), tw_c)  # not contiguous
     with pytest.raises(ValueError):
-        cuda_ntt.CudaNTT(1 << 12, "cpu")  # below the kernels' minimum
+        cuda_ntt.CudaNTT(1 << 5, "cpu")  # below the kernels' minimum (R = C = 8)
 
 
 @pytest.mark.parametrize("logn", range(13, 24))
