@@ -46,10 +46,14 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    events around launches queued back to back (``ops/timing.device_ms``),
    plain times around one call;
    the Rescue permutation kernel (R1) in both modes (the final state, all
-   28 states) at batches of 1 to 2^18 + 1 (``RESCUE_BATCHES``), 64
+   28 states) on edge states (every pair of ``rescue_edge_values``: 0, 1,
+   p - 1, R mod p and words whose square is negative before fe_redc's
+   correction) and at batches of 1 to 2^18 + 1 (``RESCUE_BATCHES``), 64
    instances also against the host ``RescuePrime.hash`` / ``trace``, every
    inverse S-box output of a 4096-instance trace cubed back to its input,
-   each mode timed at 4096 and 2^18 instances (``RESCUE_TIMED``);
+   each mode timed at 4096 and 2^18 instances (``RESCUE_TIMED``), with its
+   registers, its products as run at its SASS prices (``as_run_ms``) and
+   the clocks of one product on a round's dependent path at 4096;
    the combination kernel (K11) with fib's AIR structure at 2^13 and 2^20
    against its plain version (the program's interpreter), timed at 2^20,
    its bound from the distinct codewords it reads and the products a point
@@ -126,9 +130,14 @@ warp instructions (counted in the SASS for this run's shapes) over the
 issue and pipe rates of the card's SMs at their top clock.  K7-K10 and
 R1 count field products, each priced at the instructions of one product
 in K7's SASS: the fewest an element needs for K7-K10; for K11 the products
-a point of its program (``program_products``); for R1 the fewest
-products x^``RESCUE_ALPHA_INV`` needs (131 an inverse S-box, 7,398 a
-permutation: ``rescue_products``).  The probe kernels are straight-line
+a point of its program (``program_products``).  R1's bound counts the
+fewest products a permutation needs (131 an inverse S-box, Schoenhage's
+lower bound for x^``RESCUE_ALPHA_INV``; 7,398 a permutation:
+``rescue_products``), those of the S-boxes and the cube's x^2 at one
+squaring of R1's own SASS (its innermost loop), the rest at the cheapest
+general product in the library (``rescue_bound_split``, ``rescue_prices``);
+R1 runs the chain of ``csrc/rescue.cu``'s tables (``sbox_chain``: 149
+products, 128 squarings).  The probe kernels are straight-line
 code: each is bound by its whole SASS a thread times its warps; B3's base
 and hint16, which compute B2's function, also by B2's.
 
@@ -161,6 +170,8 @@ import hashlib
 import json
 import math
 import os
+import random
+import re
 import subprocess
 import sys
 import time
@@ -216,6 +227,7 @@ CHAIN_PREFIX_CALLS = {CHAIN_ROWS: 8, CHAIN_ROWS + 1: 2, 2 * CHAIN_ROWS - 1: 2}
 RESCUE_BATCHES = (1, 8, 31, 32, 33, 255, 4096, (1 << 18) + 1)
 RESCUE_TIMED = (4096, 1 << 18)
 RESCUE_MAIN = 4096
+RESCUE_SOURCE = os.path.join(REPO, "stark_tpu_torch", "csrc", "rescue.cu")
 # elements one K7 block inverts (csrc/fieldvec.cu kInvChunk); the field
 # kernels are also checked, untimed, on either side of one such block and
 # of the 2^20 domain, and K7 at zero patterns around its blocks
@@ -347,17 +359,123 @@ def rescue_state(limbs, b: int, seed: int, dev):
     return limbs.from_numpy(limbs.seeded_mont(2 * b + 1, seed)[:, 1:], dev).reshape(8, 2, b).contiguous()
 
 
-def rescue_products(params) -> int:
-    """Field products one permutation needs at the least: each of its
-    rounds cubes the two elements (2 products each), mixes them twice (4
-    each) and takes two inverse S-boxes x^e, e = ``RESCUE_ALPHA_INV``.  A
-    product chain for x^e is an addition chain for e, and none is shorter
-    than log2 e + log2 popcount(e) - 2.13 (Schoenhage, 1975): 131 products
-    for this e, where byte windows reach 149 and csrc/rescue.cu's 4-bit
-    windows run 164."""
+def rescue_bound_split(params) -> tuple:
+    """Field products one permutation needs at the least, by the kind R1's
+    bound prices them at, (squarings, general products): each round cubes
+    the two elements (x^2, then x^2 * x), mixes them twice (4 general
+    products each) and takes two inverse S-boxes x^e, e =
+    ``RESCUE_ALPHA_INV``.  A product chain for x^e is an addition chain for
+    e, and none is shorter than log2 e + log2 popcount(e) - 2.13
+    (Schoenhage, 1975): 131 products for this e, where csrc/rescue.cu's
+    byte windows run 149 (a 4-bit window chain, 164).  Those 131 and the
+    cube's x^2 count as squarings, the cube's x^2 * x and the mixes' as
+    general products."""
     e = params.RESCUE_ALPHA_INV
     sbox = math.ceil(math.log2(e) + math.log2(bin(e).count("1")) - 2.13)
-    return params.RESCUE_N * (2 * sbox + 4 + 8)
+    return params.RESCUE_N * (2 * sbox + 2), params.RESCUE_N * (2 + 8)
+
+
+def rescue_products(params) -> int:
+    """:func:`rescue_bound_split`'s total: 7,398 products a permutation."""
+    return sum(rescue_bound_split(params))
+
+
+def sbox_chain(source: str = RESCUE_SOURCE) -> dict:
+    """csrc/rescue.cu's inverse S-box chain: ``steps``, its products in order
+    as (dst, a, b), v[dst] = v[a] * v[b] on registers v with v[0] = x on
+    entry (a squaring when a == b): the ``kSetup`` steps, then each
+    ``kWindows`` run ``repeat`` times (``squarings`` squarings of v[kAcc],
+    then a product by v[factor]); ``acc``, the register of the result;
+    ``unroll``, the squarings of each chain a pass of the windows' inner loop
+    (``kSquaringUnroll``)."""
+    text = open(source).read()
+
+    def table(name):
+        body = re.search(name + r"\[\w+\] = \{(.*?)\n    \};", text, re.S).group(1)
+        return [tuple(map(int, m)) for m in re.findall(r"\{(\d+), (\d+), (\d+)\}", body)]
+
+    def constant(name):
+        return int(re.search(r"constexpr int " + name + r" = (\d+);", text).group(1))
+
+    acc = constant("kAcc")
+    steps = table("kSetup")
+    for squarings, factor, repeat in table("kWindows"):
+        steps += ([(acc, acc, acc)] * squarings + [(acc, acc, factor)]) * repeat
+    return {"steps": steps, "acc": acc, "unroll": constant("kSquaringUnroll")}
+
+
+def chain_counts(chain: dict) -> dict:
+    """The chain's products, squarings, and products on the dependent path
+    to its result."""
+    steps = chain["steps"]
+    depth = {0: 0}
+    for dst, a, b in steps:
+        depth[dst] = max(depth[a], depth[b]) + 1
+    return {"products": len(steps), "squarings": sum(a == b for _, a, b in steps), "dependent": depth[chain["acc"]]}
+
+
+def rescue_kernel_split(params, chain: dict) -> dict:
+    """What R1 runs a permutation: (squarings, general products), each
+    round two S-box chains, two cubes (x^2, x^2 * x) and two mixes of 4
+    products; and the products on a round's dependent path (cube 2, mix 1,
+    the S-box's, mix 1)."""
+    c = chain_counts(chain)
+    n = params.RESCUE_N
+    return {"squarings": n * (2 * c["squarings"] + 2), "general": n * (2 * (c["products"] - c["squarings"]) + 2 + 8),
+            "dependent": n * (2 + 1 + c["dependent"] + 1)}
+
+
+def rescue_prices(sass, funcs, unroll: int):
+    """(squaring, general product) in warp instructions of R1's SASS: a
+    squaring, a (2 * ``unroll``)-th of its one innermost loop (``unroll``
+    squarings of each of the two chains, no memory access); a general
+    product, half of what the window loop around it adds (the two products
+    by x^170, and that loop's counter)."""
+    ins = sass.find(funcs, "rescue_kernel")
+    inner = sass.loops(ins)
+    if len(inner) != 1 or not inner[0].branch_free or {"LDG", "STG", "LDS", "STS"} & set(inner[0].opcodes):
+        raise AssertionError(f"R1's SASS: expected one innermost loop of squarings, got {[dict(b.opcodes) for b in inner]}")
+    window = sass.enclosing(ins)
+    return inner[0].counts * (1 / (2 * unroll)), (window.counts + inner[0].counts * -1) * 0.5
+
+
+def ptxas_registers(ptxas: str, kernel: str):
+    """Registers a thread of the kernel whose mangled name holds ``kernel``,
+    from nvcc's ``-Xptxas -v`` lines; None where they do not name it."""
+    lines = ptxas.splitlines()
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for later in lines[k + 1 :]:
+                m = re.search(r"Used (\d+) registers", later)
+                if m:
+                    return int(m.group(1))
+    return None
+
+
+def rescue_edge_values(params, count: int = 4) -> list:
+    """Montgomery words that stress R1's products: 0, 1, p - 1, R mod p (the
+    form of 1), then the first ``count`` of a seeded sequence whose
+    Montgomery square (T - m p) / 2^128, m = T p^-1 mod 2^128, is negative
+    before csrc/field.cuh's fe_redc corrects it."""
+    p, r = params.P, 1 << 128
+    p_inv = pow(p, -1, r)
+    draw = random.Random(SEED)
+    hits = []
+    while len(hits) < count:
+        x = draw.randrange(p)
+        t = x * x
+        if t - (t * p_inv % r) * p < 0:
+            hits.append(x)
+    return [0, 1, p - 1, params.R_MOD_P] + hits
+
+
+def rescue_edge_state(limbs, params, dev):
+    """(8, 2, n * n): every ordered pair of :func:`rescue_edge_values` as an
+    instance's two state elements."""
+    vals = rescue_edge_values(params)
+    pairs = [(a, b) for a in vals for b in vals]
+    flat = [a for a, _ in pairs] + [b for _, b in pairs]
+    return limbs.from_numpy(limbs.pack(flat), dev).reshape(8, 2, len(pairs)).contiguous()
 
 
 def sbox_cubes_back(torch, fo, limbs, params, states, consts) -> bool:
@@ -1118,8 +1236,9 @@ def main() -> int:
 
     perm_products = rescue_products(params)
     rescue_errs, rescue_plain_ms = {}, {}
-    for b in RESCUE_BATCHES:
-        state = rescue_state(limbs, b, b, dev)
+    edge_state = rescue_edge_state(limbs, params, dev)
+    for b in ("edge",) + RESCUE_BATCHES:
+        state = edge_state if b == "edge" else rescue_state(limbs, b, b, dev)
         for trace in (False, True):
             plain = rescue.trace_mont if trace else rescue.permutation_mont
             got = cuda_rescue.rescue_permutation(state, trace=trace)
@@ -1142,22 +1261,45 @@ def main() -> int:
     card_traces = rescue.trace_batch(host_inputs, dev)
     if [card_traces[i].tolist() for i in range(64)] != host_traces:
         raise AssertionError("R1's traces differ from the host RescuePrime.trace")
-    rescue_ms, rescue_bound = {}, {}
+    # the bound: the fewest products a permutation needs, each S-box product
+    # and the cube's x^2 at R1's squaring, the rest at the cheapest general
+    # product in the library (R1's or K7's fe_mul); beside it R1's own
+    # products at the same prices (as_run), and the clocks of one product on
+    # a round's dependent path
+    chain = sbox_chain()
+    r1_sqr, r1_mul = rescue_prices(sass, funcs, chain["unroll"])
+    general = min(r1_mul, product, key=lambda c: c.seconds(sms, clock_hz))
+    bound_sqr, bound_mul = rescue_bound_split(params)
+    runs = rescue_kernel_split(params, chain)
+    rescue_ms, rescue_bound, rescue_as_run = {}, {}, {}
     for b in RESCUE_TIMED:
         state = rescue_state(limbs, b, 3, dev)
         for trace in (False, True):
             rescue_ms[b, trace] = device_ms(lambda: cuda_rescue.rescue_permutation(state, trace=trace))
             # 64 bytes in, 64 (28 * 64 in trace mode) out an instance
-            rescue_bound[b, trace] = bound(64 * b * (1 + (28 if trace else 1)), product * (perm_products * b / 32))
+            rescue_bound[b, trace] = bound(64 * b * (1 + (28 if trace else 1)),
+                                           r1_sqr * (bound_sqr * b / 32) + general * (bound_mul * b / 32))
+            rescue_as_run[b] = (r1_sqr * (runs["squarings"] * b / 32)
+                                + r1_mul * (runs["general"] * b / 32)).seconds(sms, clock_hz) * 1e3
     report["rescue_permutation"] = (rescue_ms[RESCUE_MAIN, True], rescue_plain_ms[RESCUE_MAIN, True],
                                     *rescue_bound[RESCUE_MAIN, True])
     errs["rescue_permutation"] = 0
     mode = {False: "final", True: "trace"}
-    say("rescue_kernel", batches=list(RESCUE_BATCHES), max_abs_err=rescue_errs, host_checked=64,
-        sbox_cubes_back_at=RESCUE_MAIN, products_per_permutation=perm_products,
+    registers = ptxas_registers(str(kernels.build_info.get("ptxas", "")), "rescue_kernel")
+    say("rescue_kernel", batches=["edge"] + list(RESCUE_BATCHES), edge_values=len(rescue_edge_values(params)),
+        max_abs_err=rescue_errs, host_checked=64, sbox_cubes_back_at=RESCUE_MAIN,
+        products_per_permutation=perm_products, bound_squarings=bound_sqr, bound_general=bound_mul,
+        kernel_squarings=runs["squarings"], kernel_general=runs["general"], chain=chain_counts(chain),
+        warp_instructions_per_squaring=r1_sqr._asdict(), per_general_product=r1_mul._asdict(),
+        general_priced=general._asdict(), registers=registers,
+        resident_warps_per_sm=None if registers is None else min(64, 65536 // (32 * -(-registers // 8) * 8) // 2 * 2),
         ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_ms.items()},
         hashes_per_s={f"{b}/{mode[t]}": b / v * 1e3 for (b, t), v in rescue_ms.items()},
         bound_ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_bound.items()},
+        time_over_bound={f"{b}/{mode[t]}": v / rescue_bound[b, t][0] for (b, t), v in rescue_ms.items()},
+        as_run_ms=rescue_as_run,
+        clocks_per_dependent_product={f"{RESCUE_MAIN}/{mode[t]}": rescue_ms[RESCUE_MAIN, t] * 1e-3 * clock_hz
+                                      / runs["dependent"] for t in (False, True)},
         plain_ms={f"{b}/{mode[t]}": v for (b, t), v in rescue_plain_ms.items()})
 
     # -- 2b. the TPU timing probes B1-B4 through their entry points ------------

@@ -7,28 +7,31 @@
 //
 //     cube; MDS mix + first constants; x^(1/3); MDS mix + second constants
 //
-// with x^(1/3) = x^RESCUE_ALPHA_INV, RESCUE_ALPHA_INV = (2p - 1) / 3.
+// with x^(1/3) = x^RESCUE_ALPHA_INV, RESCUE_ALPHA_INV = (2p - 1) / 3 =
+// 0x87 AA...AA AB (fourteen 0xAA bytes).
 //
-// Design: one thread per instance, its two state elements in registers
-// as field.cuh's Fe, every product field.cuh's fe_mul.  The inverse S-box
-// is a fixed 4-bit window chain whose windows are derived at compile time
-// from the decimal RESCUE_ALPHA_INV (the runs of equal hex digits below the
-// top one become loops: 0x87AAAA...AAAB is 8, then 7, 29 A's and a B), the
-// powers x^d of the digits that occur built once a call (x^2k = (x^k)^2,
-// x^(2k+1) = x^2k * x); the two registers' chains run side by side in one
-// thread, so each has the other's instructions to hide its latency.  A
-// permutation is 27 x (2 x 164 + 12) = 9,180 products.  The MDS matrix and
-// round constants (Montgomery limbs, (8, 112): the matrix row major, then a
-// round's four constants) come from a device tensor that the wrapper builds
-// once a device, read through the read-only path; no __constant__ symbol.
-// In trace mode every state is stored, (28, 8, 2, B); else the last one.
-//
-// Bound on the card: products, not bytes.  A product is ~137 warp
-// instructions issued (PERF.md section 6), so a permutation is ~39,400
-// warp instructions a thread: ~9.9 ms for 2^18 instances on 132 SMs at
-// 1980 MHz, while its bytes (64 in, 64 or 1,792 out an instance) take
-// 0.01-0.14 ms.  A batch of 4096 fills 128 warps, one an SM: it waits for
-// one thread's chain of 9,180 dependent products.
+// Bound on the card: products, not bytes (64 bytes in, 64 or 1,792 out an
+// instance).  Design, one thread an instance, its two state elements in
+// registers as field.cuh's Fe:
+// - the inverse S-box is the chain of kSetup and kWindows below: 149
+//   products, 128 of them squarings (Schoenhage's lower bound for this
+//   exponent is 131), against the 164 of a 4-bit window chain; only x,
+//   x^170 and the accumulator stay live through its windows;
+// - squarings are field.cuh's fe_sqr (10 partial products), the other
+//   products fe_mul_scan (16); both form their partial products first, so
+//   one product's dependent path is its column sums and fe_redc's one-step
+//   reduction, not fe_mul's four serial CIOS rounds;
+// - the two state elements' chains run side by side in one thread, so each
+//   has the other's instructions to issue while it waits;
+// - the MDS matrix is read once into registers; a round's four constants
+//   come from the constants tensor ((8, 112) Montgomery limbs: the matrix
+//   row major, then a round's c1_0, c1_1, c2_0, c2_1) through the read-only
+//   path.
+// A permutation is 27 x (2 x 149 + 2 x 2 + 8) = 8,370 products, 6,966 of
+// them squarings.  A batch of 4096 fills 128 warps, so it waits on one
+// thread's chain: 27 x 148 dependent products (cube 2, mix 1, S-box 144,
+// mix 1).  In trace mode every state is stored, (28, 8, 2, B); else the
+// last one.
 
 #include <cuda_runtime.h>
 
@@ -40,106 +43,109 @@ namespace {
 
 using stark::Fe;
 using stark::fe_add;
-using stark::fe_mul;
+using stark::fe_mul_scan;
+using stark::fe_sqr;
 
 constexpr int kThreads = 64;
 constexpr int kRounds = 27;         // RESCUE_N
 constexpr int kWidth = 2;           // RESCUE_M
 constexpr int kConstants = 4 + 4 * kRounds;  // columns of the constants tensor
 
-// RESCUE_ALPHA_INV as two 64-bit halves, parsed from its decimal digits.
-struct U128 {
-    uint64_t hi, lo;
+// The inverse S-box's chain, x^RESCUE_ALPHA_INV, on registers v[0..3] with
+// v[0] = x on entry.  kSetup runs first, each step v[dst] = v[a] * v[b] (a
+// squaring when a == b); then each run of kWindows, `repeat` times:
+// v[kAcc] = v[kAcc]^(2^squarings) * v[factor].  The result is v[kAcc].
+// tests/test_torch_rescue.py and chip_smoke.py read both tables from here.
+struct Step {
+    int dst, a, b;
 };
-
-constexpr U128 parse_decimal(const char* s) {
-    U128 v{0, 0};
-    for (; *s; ++s) {  // v = 10 v + digit
-        const uint64_t low = (v.lo & 0xFFFFFFFFull) * 10;
-        const uint64_t high = (v.lo >> 32) * 10 + (low >> 32);
-        uint64_t lo = (high << 32) | (low & 0xFFFFFFFFull);
-        uint64_t hi = v.hi * 10 + (high >> 32);
-        const uint64_t d = static_cast<uint64_t>(*s - '0');
-        lo += d;
-        hi += lo < d;
-        v = U128{hi, lo};
-    }
-    return v;
-}
-
-constexpr U128 kAlphaInv = parse_decimal("180331931428153586757283157844700080811");
-// scalars, so that device code may read them
-constexpr uint64_t kAlphaInvHi = kAlphaInv.hi;
-constexpr uint64_t kAlphaInvLo = kAlphaInv.lo;
-// 3 * alpha_inv = 2p - 1 == 1 (mod 2^64), as p == 1 (mod 2^64)
-static_assert(kAlphaInvLo * 3u == 1u, "RESCUE_ALPHA_INV is not (2p - 1) / 3");
-
-// Hex digit k of the exponent, k = 0 the least significant.
-__host__ __device__ constexpr int hex_digit(int k) {
-    return static_cast<int>(((k < 16 ? kAlphaInvLo >> (4 * k) : kAlphaInvHi >> (4 * (k - 16)))) & 0xF);
-}
-
-__host__ __device__ constexpr int top_digit() {
-    int k = 31;
-    while (k > 0 && hex_digit(k) == 0) --k;
-    return k;
-}
-
-// How many digits from k down equal digit k.
-__host__ __device__ constexpr int run_length(int k) {
-    int n = 1;
-    while (k - n >= 0 && hex_digit(k - n) == hex_digit(k)) ++n;
-    return n;
-}
-
-// x^1 .. x^15; the entries no window uses are dead code.
-struct Powers {
-    Fe p[16];
+struct Window {
+    int squarings, factor, repeat;
 };
+constexpr int kRegisters = 4;
+constexpr int kAcc = 2;
+constexpr int kSetupSteps = 13;
+constexpr int kWindowRuns = 2;
+constexpr int kSquaringUnroll = 4;  // squarings of each chain a pass of the windows' inner loop
 
-__device__ __forceinline__ Powers powers_of(const Fe& x) {
-    Powers t;
-    t.p[1] = x;
-#pragma unroll
-    for (int k = 2; k < 16; ++k) t.p[k] = (k % 2 == 0) ? fe_mul(t.p[k / 2], t.p[k / 2]) : fe_mul(t.p[k - 1], x);
-    return t;
+__host__ __device__ constexpr Step setup_step(int k) {
+    constexpr Step kSetup[kSetupSteps] = {
+        {1, 0, 0},  // x^2
+        {2, 1, 1},  // x^4
+        {3, 2, 0},  // x^5
+        {1, 3, 1},  // x^7
+        {2, 2, 2},  // x^8
+        {2, 2, 2},  // x^16
+        {3, 2, 3},  // x^21
+        {2, 2, 2},  // x^32
+        {2, 2, 2},  // x^64
+        {3, 2, 3},  // x^85
+        {2, 2, 2},  // x^128
+        {2, 2, 1},  // x^135 = x^0x87, the accumulator
+        {1, 3, 3},  // x^170 = x^0xAA
+    };
+    return kSetup[k];
 }
 
-// The windows from digit K down: each run of equal digits a loop of
-// (4 squarings, times x^digit), both chains side by side.
+__host__ __device__ constexpr Window window_run(int k) {
+    constexpr Window kWindows[kWindowRuns] = {
+        {8, 1, 15},  // fifteen bytes 0xAA
+        {0, 0, 1},   // + 1: the last byte is 0xAB
+    };
+    return kWindows[k];
+}
+
+static_assert(window_run(0).squarings % kSquaringUnroll == 0 && window_run(1).squarings % kSquaringUnroll == 0,
+              "a window's squarings are whole passes of its inner loop");
+
 template <int K>
-__device__ __forceinline__ void windows(Fe& a0, Fe& a1, const Powers& t0, const Powers& t1) {
-    if constexpr (K >= 0) {
-        constexpr int kDigit = hex_digit(K);
-        constexpr int kRun = run_length(K);
-#pragma unroll 1
-        for (int j = 0; j < kRun; ++j) {
-#pragma unroll
-            for (int s = 0; s < 4; ++s) {
-                a0 = fe_mul(a0, a0);
-                a1 = fe_mul(a1, a1);
-            }
-            if constexpr (kDigit != 0) {
-                a0 = fe_mul(a0, t0.p[kDigit]);
-                a1 = fe_mul(a1, t1.p[kDigit]);
-            }
+__device__ __forceinline__ void setup(Fe (&v0)[kRegisters], Fe (&v1)[kRegisters]) {
+    if constexpr (K < kSetupSteps) {
+        constexpr Step s = setup_step(K);
+        if constexpr (s.a == s.b) {
+            v0[s.dst] = fe_sqr(v0[s.a]);
+            v1[s.dst] = fe_sqr(v1[s.a]);
+        } else {
+            v0[s.dst] = fe_mul_scan(v0[s.a], v0[s.b]);
+            v1[s.dst] = fe_mul_scan(v1[s.a], v1[s.b]);
         }
-        windows<K - kRun>(a0, a1, t0, t1);
+        setup<K + 1>(v0, v1);
+    }
+}
+
+template <int K>
+__device__ __forceinline__ void windows(Fe (&v0)[kRegisters], Fe (&v1)[kRegisters]) {
+    if constexpr (K < kWindowRuns) {
+        constexpr Window w = window_run(K);
+#pragma unroll 1
+        for (int j = 0; j < w.repeat; ++j) {
+#pragma unroll 1
+            for (int s = 0; s < w.squarings / kSquaringUnroll; ++s) {
+#pragma unroll
+                for (int u = 0; u < kSquaringUnroll; ++u) {
+                    v0[kAcc] = fe_sqr(v0[kAcc]);
+                    v1[kAcc] = fe_sqr(v1[kAcc]);
+                }
+            }
+            v0[kAcc] = fe_mul_scan(v0[kAcc], v0[w.factor]);
+            v1[kAcc] = fe_mul_scan(v1[kAcc], v1[w.factor]);
+        }
+        windows<K + 1>(v0, v1);
     }
 }
 
 // x0^(1/3), x1^(1/3) in place.
 __device__ __forceinline__ void inverse_sbox(Fe& x0, Fe& x1) {
-    const Powers t0 = powers_of(x0);
-    const Powers t1 = powers_of(x1);
-    constexpr int kTop = top_digit();
-    constexpr int kFirst = hex_digit(kTop);
-    x0 = t0.p[kFirst];
-    x1 = t1.p[kFirst];
-    windows<kTop - 1>(x0, x1, t0, t1);
+    Fe v0[kRegisters], v1[kRegisters];
+    v0[0] = x0;
+    v1[0] = x1;
+    setup<0>(v0, v1);
+    windows<0>(v0, v1);
+    x0 = v0[kAcc];
+    x1 = v1[kAcc];
 }
 
-__device__ __forceinline__ Fe cube(const Fe& x) { return fe_mul(fe_mul(x, x), x); }
+__device__ __forceinline__ Fe cube(const Fe& x) { return fe_mul_scan(fe_sqr(x), x); }
 
 // One Montgomery element of the constants tensor through the read-only path.
 __device__ __forceinline__ Fe constant(const int32_t* __restrict__ c, int column) {
@@ -168,16 +174,16 @@ __global__ void __launch_bounds__(kThreads) rescue_kernel(const int32_t* __restr
         stark::fe_store(out, plane, i, s0);
         stark::fe_store(out, plane, b + i, s1);
     }
+    const Fe m00 = constant(consts, 0), m01 = constant(consts, 1);
+    const Fe m10 = constant(consts, 2), m11 = constant(consts, 3);
 #pragma unroll 1
     for (int r = 0; r < kRounds; ++r) {
-        const Fe m00 = constant(consts, 0), m01 = constant(consts, 1);
-        const Fe m10 = constant(consts, 2), m11 = constant(consts, 3);
         const Fe a0 = cube(s0), a1 = cube(s1);
-        Fe t0 = fe_add(fe_add(fe_mul(m00, a0), fe_mul(m01, a1)), constant(consts, 4 + 4 * r));
-        Fe t1 = fe_add(fe_add(fe_mul(m10, a0), fe_mul(m11, a1)), constant(consts, 5 + 4 * r));
+        Fe t0 = fe_add(fe_add(fe_mul_scan(m00, a0), fe_mul_scan(m01, a1)), constant(consts, 4 + 4 * r));
+        Fe t1 = fe_add(fe_add(fe_mul_scan(m10, a0), fe_mul_scan(m11, a1)), constant(consts, 5 + 4 * r));
         inverse_sbox(t0, t1);
-        s0 = fe_add(fe_add(fe_mul(m00, t0), fe_mul(m01, t1)), constant(consts, 6 + 4 * r));
-        s1 = fe_add(fe_add(fe_mul(m10, t0), fe_mul(m11, t1)), constant(consts, 7 + 4 * r));
+        s0 = fe_add(fe_add(fe_mul_scan(m00, t0), fe_mul_scan(m01, t1)), constant(consts, 6 + 4 * r));
+        s1 = fe_add(fe_add(fe_mul_scan(m10, t0), fe_mul_scan(m11, t1)), constant(consts, 7 + 4 * r));
         if (trace) {
             int32_t* row = out + (r + 1) * step;
             stark::fe_store(row, plane, i, s0);

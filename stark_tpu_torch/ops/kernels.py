@@ -125,8 +125,9 @@ def build() -> Path:
     """Compile the kernel library if this source tree has not been built;
     returns the path of the shared library."""
     so = _BUILD_DIR / f"libstark_kernels-{_source_digest()}.so"
+    log = so.with_suffix(".ptxas")  # ptxas's -v lines, kept for a reused library
     if so.exists():
-        build_info.update(path=str(so), seconds=0.0, cached=True)
+        build_info.update(path=str(so), seconds=0.0, cached=True, ptxas=log.read_text() if log.exists() else "")
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -150,9 +151,11 @@ def build() -> Path:
     finally:
         for _, obj in units:
             obj.unlink(missing_ok=True)
+    ptxas = "".join(err for _, err in outs)
+    log.write_text(ptxas)
     os.replace(tmp, so)
     seconds = time.perf_counter() - t0
-    build_info.update(path=str(so), seconds=seconds, cached=False, ptxas="".join(err for _, err in outs))
+    build_info.update(path=str(so), seconds=seconds, cached=False, ptxas=ptxas)
     return so
 
 

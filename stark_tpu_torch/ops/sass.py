@@ -6,8 +6,9 @@ kernel of the built library; :func:`functions` splits that listing by
 kernel, :func:`straight_line` counts a kernel that runs its whole body
 once per thread, and :func:`loops` counts the bodies of the innermost
 loops of the others, so the caller can multiply each body by the
-iterations its inputs need.  :func:`local_accesses` counts a kernel's
-loads and stores of local memory (spilled or run-time indexed arrays).
+iterations its inputs need, and :func:`enclosing` the loop around one of
+them.  :func:`local_accesses` counts a kernel's loads and stores of local
+memory (spilled or run-time indexed arrays).
 
 Counts are in warp instructions, split by the pipe that executes them on
 sm_90 (Hopper): every instruction is issued, one a clock by each of an
@@ -133,20 +134,41 @@ def straight_line(instructions) -> Counts:
     return count(body)
 
 
-def loops(instructions) -> List[Loop]:
-    """The innermost loops (a backward branch whose body holds no other
-    backward branch), in address order, without the closing self-branch."""
+def _spans(instructions) -> List[tuple]:
+    """(first, last) index of every loop: a backward branch and its target."""
     index = {addr: k for k, (addr, _) in enumerate(instructions)}
     spans = []
     for k, (addr, ins) in enumerate(instructions):
         target = _target(ins) if opcode(ins) == "BRA" else None
         if target is not None and target < addr:
             spans.append((index[target], k))
-    inner = [(a, b) for a, b in spans if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in spans)]
-    out = []
-    for a, b in sorted(inner):
-        body = instructions[a : b + 1]
-        ops = Counter(opcode(i) for _, i in body if opcode(i) != "NOP")
-        branch_free = all(opcode(i) not in ("BRA", "EXIT") for _, i in body[:-1])
-        out.append(Loop(count(body), ops, branch_free))
-    return out
+    return spans
+
+
+def _loop(instructions, first: int, last: int) -> Loop:
+    body = instructions[first : last + 1]
+    ops = Counter(opcode(i) for _, i in body if opcode(i) != "NOP")
+    branch_free = all(opcode(i) not in ("BRA", "EXIT") for _, i in body[:-1])
+    return Loop(count(body), ops, branch_free)
+
+
+def _innermost(spans) -> List[tuple]:
+    return sorted((a, b) for a, b in spans if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in spans))
+
+
+def loops(instructions) -> List[Loop]:
+    """The innermost loops (a backward branch whose body holds no other
+    backward branch), in address order, without the closing self-branch."""
+    return [_loop(instructions, a, b) for a, b in _innermost(_spans(instructions))]
+
+
+def enclosing(instructions, k: int = 0) -> Loop:
+    """The loop that most tightly encloses the k-th innermost loop (address
+    order), its whole body counted once, the inner loop's among it."""
+    spans = _spans(instructions)
+    a, b = _innermost(spans)[k]
+    outer = [(c, d) for c, d in spans if c <= a and b <= d and (c, d) != (a, b)]
+    if not outer:
+        raise LookupError(f"innermost loop {k} is not inside another loop")
+    c, d = min(outer, key=lambda s: s[1] - s[0])
+    return _loop(instructions, c, d)

@@ -453,6 +453,21 @@ def test_rescue_permutation_kernel_matches_plain(cuda, b, trace):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("trace", [False, True])
+def test_rescue_permutation_kernel_on_edge_states(cuda, trace):
+    """R1 on every pair of 0, 1, p - 1, R mod p and words whose Montgomery
+    square is negative before fe_redc's last correction."""
+    import chip_smoke
+    from stark_tpu_torch import params
+    from stark_tpu_torch.ops import limbs, rescue
+    from stark_tpu_torch.ops.cuda_rescue import rescue_permutation
+
+    state = chip_smoke.rescue_edge_state(limbs, params, cuda)
+    got = _launched("rescue_permutation", lambda: rescue_permutation(state, trace=trace))
+    want = rescue.trace_mont(state) if trace else rescue.permutation_mont(state)
+    assert torch.equal(got, want)
+
+
 def test_rescue_permutation_runs_its_plain_version_on_cpu_tensors(cuda):
     from stark_tpu_torch.ops import kernels, rescue
     from stark_tpu_torch.ops.cuda_rescue import rescue_permutation

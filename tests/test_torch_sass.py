@@ -92,3 +92,25 @@ def test_seconds_take_the_slowest_of_issue_and_pipes():
     assert sass.Counts(issue=528, alu=0, fma=0).seconds(132, 1e9) == pytest.approx(1e-9)
     assert sass.Counts(issue=528, alu=528, fma=0).seconds(132, 1e9) == pytest.approx(2e-9)
     assert (sass.Counts(1, 2, 3) * 2 + sass.Counts(1, 1, 1)) == sass.Counts(3, 5, 7)
+
+
+def test_enclosing_counts_the_loop_around_an_innermost_one():
+    listing = """
+		Function : _ZN12_GLOBAL__N_16nested_kernelEv
+        /*0000*/                   IMAD.MOV.U32 R0, RZ, RZ, RZ ;            /* 0x000000ffff007224 */
+        /*0010*/                   IADD3 R1, R0, 0x1, RZ ;                   /* 0x0000000100017810 */
+        /*0020*/                   IMAD R2, R1, R1, RZ ;                     /* 0x0000000101027224 */
+        /*0030*/                   ISETP.GE.AND P0, PT, R2, 0x10, PT ;       /* 0x000000100200780c */
+        /*0040*/              @!P0 BRA 0x20 ;                                /* 0xfffffffc00708947 */
+        /*0050*/                   LOP3.LUT R0, R0, R2, RZ, 0x3c, !PT ;     /* 0x0000000200007212 */
+        /*0060*/                   ISETP.GE.AND P1, PT, R0, 0x4, PT ;        /* 0x000000040000780c */
+        /*0070*/              @!P1 BRA 0x10 ;                                /* 0xfffffffc00708947 */
+        /*0080*/                   EXIT ;                                    /* 0x000000000000794d */
+"""
+    ins = sass.find(sass.functions(listing), "nested_kernel")
+    assert [b.counts for b in sass.loops(ins)] == [sass.Counts(3, 1, 1)]  # IMAD, ISETP, BRA
+    outer = sass.enclosing(ins)
+    # IADD3, the inner body, LOP3, ISETP, BRA
+    assert outer.counts == sass.Counts(7, 4, 1) and not outer.branch_free
+    with pytest.raises(LookupError):
+        sass.enclosing(sass.find(sass.functions(LISTING), "loop_kernel"))
