@@ -22,10 +22,15 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    kernel on digits and on Montgomery limbs, as a prove runs it; the level
    kernel timed at every width of a 2^20 tree), the digit conversion
    (``mont_digits``) at ``DIGIT_SIZES`` against its plain version and the
-   digits, each timed, the top
-   kernel at every width from 2 to 2^13 (timed from 2^9 to 2^13 against
-   the chain of level launches it replaces, the split at ``TOP_WIDTH``
-   among them), the subtrees kernel from every width 2^10 to 2^19 down to
+   digits, each timed, and its gather form (``mont_digits_gather``) on 1
+   and 27 codewords at ``gather_sizes`` indices (one launch a call under
+   the struct's cap, two past it; no other operation on the card), timed
+   at the fib and chain gathers' shapes, the launch floor (an empty
+   kernel, ``timing.launch_floor_ms``), the top kernel at every width
+   from 2 to 2^13 (0 local-memory instructions in its SASS; timed at
+   every width against the chain of level launches it replaces, the
+   split at ``TOP_WIDTH`` among them, with the marginal ms of each
+   level), the subtrees kernel from every width 2^10 to 2^19 down to
    512 (timed against the chain of level launches it replaces; the
    prove's 11 trees split at each candidate ``SUBTREE_WIDTH``, failing if
    the constant's split takes more than 5 % longer than the cheapest), a
@@ -88,7 +93,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    (``ops/guard.py``), and any such call fails the phase;
 4. FibonacciStark(65536) proved on the card over its 2^20-point FRI
    domain, its trace interpolated on the card, with every launch counter
-   but R1's and the probes' > 0 for that prove (theirs 0), the level
+   but R1's and the probes' > 0 for that prove (theirs 0), ``merkle_top``
+   once a tree, every opening gather of values one ``mont_digits_gather``
+   launch and no other operation on the card (``watch_gathers``), the level
    kernel launched only on levels wider than ``SUBTREE_WIDTH`` and the
    subtrees kernel once a tree, the
    prefix product once a call at the sizes of ``PROVE_PREFIX_CALLS``, every
@@ -112,17 +119,20 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    after; the probes' 0), its K8 calls and NTT sizes checked as in
    phase 4, peak device memory, the
    proof accepted by the port's host verifier and a wrong claim rejected,
+   and by the card's model (its AIR values at the queries one gather
+   launch from the prove's group codewords, watched as in phase 4),
    the guard and the one combination launch as in phase 4, the
    combination's cold and warm split, K11 with the chain's own structure
    and group codewords at 2^13 and 2^20 against its plain version (timed at
    2^20), and each kernel's device time in that prove;
-6. a JSON line of the kernels, K11 (``combination``) and ``mont_digits``
-   among them (``launches``: the fib-2^16 prove's, R1's
+6. a JSON line of the kernels, K11 (``combination``), ``mont_digits`` and
+   ``mont_digits_gather`` among them (``launches``: the fib-2^16 prove's, R1's
    in prove_batch, the probes' in phase 2b; ``chain_launches`` and
    ``chain_prove_ms``: the chain prove's; the probes' prove times null;
    ``library_ms`` the stub's library call, else null;
    ``function_bound_ms`` B2's bound for the three chains of the field
-   product, else null),
+   product, else null; ``launch_floor_ms`` the empty kernel's time beside
+   the latency-bound kernels, else null),
    then the last line {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes over the memory rate and its
@@ -144,7 +154,7 @@ and hint16, which compute B2's function, also by B2's.
 ``--times DIR`` times the NTT passes at every size, the Fiat-Shamir round
 at the cascade's 8 bodies, the middle levels of the prove's trees (2^13
 to 2^17 wide, down to 512, as DIR routes them) and, where it has them, the
-top Merkle kernel at 2^9 to 2^13, the inversion (K7) and power table (K9)
+top Merkle kernel at every width from 2 to 2^13, the inversion (K7) and power table (K9)
 at 1 (K7's fixed work a block), 65,545 and 2^20 elements, and the prefix
 product (K8) at the prove's sizes, with the prove's sums, of the checkout at DIR (for
 paired runs against another commit unpacked with ``git archive``) on
@@ -192,8 +202,10 @@ KECCAK_ROUNDS = 24
 # bincode string of 72 bytes; each later round appends its own root
 FS_BODY_BYTES = 3 * 72
 FS_CASCADE_BODIES = tuple(FS_BODY_BYTES + 72 * r for r in range(8))
-# level widths the top kernel is timed at against the level launches it replaces
-TOP_SWEEP = tuple(1 << k for k in range(9, 14))
+# level widths the top kernel is checked and timed at, against the level
+# launches it replaces: every width it takes, so that each level's
+# marginal time is on record
+TOP_SWEEP = tuple(1 << k for k in range(1, 14))
 # the leaves of the fib-2^16 prove's 11 Merkle trees: 3 commitments on the
 # 2^20-point FRI domain, then a tree a FRI round from 2^20 down to 2^13
 PROVE_TREES = (1 << 20,) * 4 + tuple(1 << k for k in range(19, 12, -1))
@@ -245,6 +257,14 @@ FIB_STRUCTURE = ((((0, 0, 1, 0), 0), ((1, 0, 0, 0), 1), ((0, 1, 0, 0), 2)),
 # the digit conversion's sizes checked in phase 2: one value, a gather, odd
 # and even around the FRI domain
 DIGIT_SIZES = (1, 37, (1 << 20) - 1, 1 << 20)
+# its gather form: the codewords of the checked gathers, and the
+# (codewords, indices) of the two timed, fib's openings (a codeword's 4
+# values) and the chain's AIR values (27 group codewords at 4 points)
+GATHER_CODEWORDS = (1, 27)
+GATHER_TIMED = {"fib": (1, 4), "chain": (27, 4)}
+# the kernels bound by their latency at the main path's shape, beside which
+# the kernels line sets the launch floor (an empty kernel's time)
+LATENCY_BOUND = ("merkle_top", "fs_round", "mont_digits_gather")
 # the chain probes that compute the field product a * t^10 * 2^-1280: B2
 # (``fe_mul``) and B3's base and hint16 (the TPU's 16-bit CIOS)
 PROBE_FIELD_PRODUCT = ("probe_mont_chain", "probe_mont16_chain/base", "probe_mont16_chain/hint16")
@@ -352,6 +372,90 @@ def middle_levels(cuda_merkle, level):
     if level.shape[1] > 512:
         level = cuda_merkle.merkle_subtrees(level, (level.shape[1] // 512).bit_length() - 1)[-8 * 512 :].view(8, 512)
     return level
+
+
+def gather_sizes(cuda_merkle) -> tuple:
+    """Indices a checked gather takes: one, fib's 4, 37, and one past the
+    gather kernel's cap (two launches)."""
+    return 1, 4, 37, cuda_merkle.GATHER_MAX_INDICES + 1
+
+
+def gather_indices(n: int, k: int, seed: int) -> list:
+    """k sorted distinct columns of an n-point codeword, its last (and,
+    from two on, its first) among them."""
+    if k == 1:
+        return [n - 1]
+    inner = random.Random(seed).sample(range(1, n - 1), k - 2)
+    return [0] + sorted(inner) + [n - 1]
+
+
+def gather_launches(cuda_merkle, codewords: int, k: int) -> int:
+    """Launches of the gather kernel a gather of k indices from the given
+    number of codewords takes: one a block of the struct's caps."""
+    return -(-codewords // cuda_merkle.GATHER_MAX_CODEWORDS) * -(-k // cuda_merkle.GATHER_MAX_INDICES)
+
+
+class watch_gathers:
+    """Within the block, record every opening gather of values on the
+    card: ``DeviceCodeword.gather_values_async`` (the FRI and boundary
+    openings) and ``Stark._device_air_group_values`` (the AIR values a
+    verify on the card reads): per call, its elements, its launches of the
+    gather kernel and the other operations that put a tensor on the card
+    (``guard.count_device_ops``; the fetch of the digits to the host puts
+    none there).  :meth:`check` fails unless each call launched the kernel
+    as often as its caps require and ran nothing else on the card but its
+    wrapper's allocation and the fetch's view."""
+
+    def __init__(self, kernels, guard, device_prover, stark_cls, cuda_merkle):
+        self.kernels, self.guard, self.cuda_merkle = kernels, guard, cuda_merkle
+        self.targets = [(device_prover.DeviceCodeword, "gather_values_async"),
+                        (stark_cls, "_device_air_group_values")]
+        self.calls = []
+
+    def __enter__(self):
+        self.originals = [(cls, name, getattr(cls, name)) for cls, name in self.targets]
+        for cls, name, fn in self.originals:
+            setattr(cls, name, self._watched(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.originals:
+            setattr(cls, name, fn)
+
+    def _watched(self, name, fn):
+        def call(*args, **kwargs):
+            before = self.kernels.LAUNCHES["mont_digits_gather"]
+            with self.guard.count_device_ops() as ops:
+                out = fn(*args, **kwargs)
+            self.calls.append({"site": name, "launches": self.kernels.LAUNCHES["mont_digits_gather"] - before,
+                               "ops": dict(ops), "out": out})
+            return out
+
+        return call
+
+    def check(self, what: str, sites) -> dict:
+        """Each call's launches against its caps; returns a summary by site."""
+        summary = {}
+        for c in self.calls:
+            out = c.pop("out")
+            if c["site"] == "gather_values_async":  # (indices gathered, digits), ([], None) if all cached
+                want = gather_launches(self.cuda_merkle, 1, len(out[0])) if out[0] else 0
+            else:  # every group codeword of the AIR at the queries: under both caps
+                want = 1
+            other = {op: v for op, v in c["ops"].items()
+                     if op not in self.guard.ALLOCATION and op != "aten.detach.default"}  # the fetch's view
+            if other:
+                raise AssertionError(f"{what}: an opening gather ({c['site']}) ran {other} on the card")
+            if c["launches"] != want:
+                raise AssertionError(f"{what}: an opening gather ({c['site']}) launched the gather kernel "
+                                     f"{c['launches']} times, expected {want}")
+            s = summary.setdefault(c["site"], {"calls": 0, "launches": 0})
+            s["calls"] += 1
+            s["launches"] += c["launches"]
+        missing = [site for site in sites if site not in summary]
+        if missing:
+            raise AssertionError(f"{what}: no opening gather through {missing}")
+        return summary
 
 
 def rescue_state(limbs, b: int, seed: int, dev):
@@ -611,7 +715,7 @@ def times_of(tree: str) -> int:
             kernel=device_ms(lambda: cuda_fs.fs_round(body, body_len, 4, root)))
     if hasattr(cuda_merkle, "merkle_top"):  # the trees since the top kernel
         for w in TOP_SWEEP:
-            level = torch.from_numpy(seeded_mont(w, w).view(np.int32)).to(dev)
+            level = torch.from_numpy(np.ascontiguousarray(seeded_mont(max(w, 3), w)[:, :w]).view(np.int32)).to(dev)
             say("top_times", tree=tree, width=w, kernel=device_ms(lambda: cuda_merkle.merkle_top(level)))
     try:
         from stark_tpu_torch.ops import cuda_field  # the trees since the field kernels
@@ -729,7 +833,8 @@ def main() -> int:
     from stark_tpu_torch.ops.fold import fold_mont
     from stark_tpu_torch.ops import sass
     from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, pack, seeded_mont, to_numpy, unpack
-    from stark_tpu_torch.ops.timing import call_ms, device_ms
+    from stark_tpu_torch.ops import device_prover
+    from stark_tpu_torch.ops.timing import call_ms, device_ms, launch_floor_ms
     from stark_tpu_torch.params import GENERATOR, P, R_MOD_P
     from stark_tpu_torch.rng import DeterministicRandom
     from stark_tpu_torch.stark import Stark
@@ -802,15 +907,14 @@ def main() -> int:
         return sass.count(ins) + sum((b.counts * (i - 1) for b, i in zip(body, iterations)), sass.Counts())
 
     product = product_price(sass, funcs)
-    top_parent = max(sass.loops(sass.find(funcs, "top_kernel")), key=lambda b: b.counts.issue)
     round_loop = keccak_round(sass, funcs)
     # K4 as the prove runs it, on Montgomery limbs (the reduction in its
     # loads); its digit form, and the conversion alone (mont_digits)
     per_unit = {"merkle_leaves": sass.straight_line(sass.find(funcs, "leaf_kernelILb1E")),
                 "merkle_leaves_digits": sass.straight_line(sass.find(funcs, "leaf_kernelILb0E")),
                 "mont_digits": sass.straight_line(sass.find(funcs, "mont_digits_kernel")),
+                "mont_digits_gather": sass.straight_line(sass.find(funcs, "mont_digits_gather_kernel")),
                 "merkle_level": sass.straight_line(sass.find(funcs, "level_kernelILi12E")),
-                "merkle_top": top_parent.counts,  # one parent
                 "fri_fold": sass.straight_line(sass.find(funcs, "fold_kernel")),
                 "keccak_round": round_loop.counts}
 
@@ -829,14 +933,14 @@ def main() -> int:
             return bound(64 * size, per_unit[name] * (size / 32))
         if name == "merkle_leaves_digits":  # 4 digit words in, 8 digest words out a leaf
             return bound(48 * size, per_unit[name] * (size / 32))
-        if name == "mont_digits":  # 8 Montgomery limbs in, 4 digit words out
+        if name in ("mont_digits", "mont_digits_gather"):  # 8 Montgomery limbs in, 4 digit words out
             return bound(48 * size, per_unit[name] * (size / 32))
         if name == "merkle_level":  # two children in, one parent out
             return bound(48 * size, per_unit[name] * (size / 2 / 32))
         if name == "merkle_subtrees":  # the prove's launches: down to TOP_WIDTH
             return subtree_bound(size, (size // cuda_merkle.TOP_WIDTH).bit_length() - 1)
-        if name == "merkle_top":  # the level in, every parent out, once each
-            return bound(32 * size + 32 * (size - 1), per_unit[name] * ((size - 1) / 32))
+        if name == "merkle_top":  # the level in, every parent out, once each; K5's instructions a compress
+            return bound(32 * size + 32 * (size - 1), per_unit["merkle_level"] * ((size - 1) / 32))
         if name == "fri_fold":  # codeword, table, alpha in; half the codeword out
             return bound(LIMB_BYTES * (size + size // 2 + 1 + size // 2), per_unit[name] * (size / 2 / 32))
         if name == "fs_round":  # body, root, 72 appended bytes, alpha; one warp runs the round loop
@@ -857,9 +961,20 @@ def main() -> int:
             return bound(3 * LIMB_BYTES * size, product * warps)
         raise AssertionError(f"no bound for {name}")
 
-    say("sass", sms=sms, clock_mhz=clock_hz / 1e6, local_memory=local_memory(sass, funcs),
-        keccak_round_opcodes=dict(round_loop.opcodes), branch_free={"keccak_round": round_loop.branch_free,
-                                                                    "merkle_top": top_parent.branch_free},
+    # the top kernel: its one innermost loop is a thread a parent (the wide
+    # levels); the quad compress of the narrow levels is straight-line code
+    # in the level loop around it
+    top_ins = sass.find(funcs, "top_kernel")
+    top_loops = sass.loops(top_ins)
+    lmem = local_memory(sass, funcs)
+    spilled = [k for k in lmem if "top_kernel" in k or "mont_digits_gather_kernel" in k]
+    if spilled:
+        raise AssertionError(f"local-memory instructions in the top or gather kernel: {[lmem[k] for k in spilled]}")
+    say("sass", sms=sms, clock_mhz=clock_hz / 1e6, local_memory=lmem,
+        keccak_round_opcodes=dict(round_loop.opcodes), branch_free={"keccak_round": round_loop.branch_free},
+        top_kernel={"all": sass.count(top_ins)._asdict(), "local_memory": sass.local_accesses(top_ins),
+                    "shuffles": sum(sass.opcode(i) == "SHFL" for _, i in top_ins),
+                    "innermost_loops": [dict(b.counts._asdict(), **b.opcodes) for b in top_loops]},
         warp_instructions_per_thread={k: v._asdict() for k, v in per_unit.items()},
         warp_instructions_2e20={"ntt_pass1": ntt_counts(True, 10, 10)._asdict(),
                                 "ntt_pass2": ntt_counts(False, 10, 10)._asdict()})
@@ -970,6 +1085,41 @@ def main() -> int:
     digit_cols = {k: mont[:, -k:].contiguous() for k in DIGIT_SIZES}  # copied outside the timed calls
     digits_ms = {k: device_ms(lambda: cuda_merkle.mont_digits(digit_cols[k])) for k in DIGIT_SIZES}
     del digit_cols
+    # the gather form on 1 and 27 codewords (the 2^20 codeword and its
+    # rotations) at gather_sizes indices, first and last columns among
+    # them, against the plain gather (and the digits of the first
+    # codeword): one launch a call under the caps, two past the index cap,
+    # and nothing else on the card but the output's allocation
+    timed = {}  # (kernel, launch size) -> device ms, for the prove's per-kernel sums (phase 4)
+    gather_cws = [mont] + [torch.roll(mont, g, 1) for g in range(1, max(GATHER_CODEWORDS))]
+    gather_errs, gather_counts = {}, {}
+    for g in GATHER_CODEWORDS:
+        for k in gather_sizes(cuda_merkle):
+            idx, cws = gather_indices(n, k, 100 * g + k), gather_cws[:g]
+            before = kernels.LAUNCHES["mont_digits_gather"]
+            with guard.count_device_ops() as ops:
+                got = cuda_merkle.mont_digits(cws, idx)
+            gather_counts[f"{g}x{k}"] = {"launches": kernels.LAUNCHES["mont_digits_gather"] - before,
+                                         "other_ops": dict(ops)}
+            err = max_abs_err(torch, got, torch.cat([dm.plain_digits(cw[:, idx]) for cw in cws], dim=1))
+            gather_errs[f"{g}x{k}"] = max(err, max_abs_err(torch, got[:, :k], d[:, idx]))
+            if (gather_counts[f"{g}x{k}"]["launches"] != gather_launches(cuda_merkle, g, k)
+                    or set(ops) - guard.ALLOCATION):
+                raise AssertionError(f"the gather of {k} indices from {g} codewords launched "
+                                     f"{gather_counts[f'{g}x{k}']} (expected {gather_launches(cuda_merkle, g, k)} "
+                                     f"launches and only the allocation)")
+    errs["mont_digits_gather"] = max(gather_errs.values())
+    if errs["mont_digits_gather"]:
+        raise AssertionError(f"the gather kernel disagrees with its plain version: {gather_errs}")
+    gather_ms = {}
+    for name, (g, k) in GATHER_TIMED.items():
+        cws, idx = gather_cws[:g], gather_indices(n, k, 7)
+        timed["mont_digits_gather", g * k] = device_ms(lambda: cuda_merkle.mont_digits(cws, idx))
+        gather_ms[name] = {"codewords": g, "indices": k, "kernel": timed["mont_digits_gather", g * k],
+                           "plain": call_ms(lambda: torch.cat([dm.plain_digits(cw[:, idx]) for cw in cws], dim=1)),
+                           "bound": bound_at("mont_digits_gather", g * k)[0]}
+    del gather_cws, cws
+    floor_ms = launch_floor_ms(dev)
     report["merkle_level"] = (device_ms(lambda: cuda_merkle.merkle_level(leaves)),
                               call_ms(lambda: dm.level_hash(leaves)),
                               *bound_at("merkle_level", n))
@@ -983,7 +1133,6 @@ def main() -> int:
         return level
 
     level_in = {1 << k: leaves[:, : 1 << k].contiguous() for k in range(1, 21)}
-    timed = {}  # (kernel, launch size) -> device ms, for the prove's per-kernel sums (phase 4)
     for w, level in level_in.items():
         timed["merkle_level", w] = device_ms(lambda: cuda_merkle.merkle_level(level))
     top_errs = {w: max_abs_err(torch, cuda_merkle.merkle_top(level_in[w]), dm.merkle_top_plain(level_in[w]))
@@ -996,7 +1145,10 @@ def main() -> int:
     for w in TOP_SWEEP:
         level = level_in[w]
         timed["merkle_top", w] = device_ms(lambda: cuda_merkle.merkle_top(level))
-        top_sweep[w] = {"top": timed["merkle_top", w], "level_chain": device_ms(lambda: level_chain(level), 4)}
+        top_sweep[w] = {"top": timed["merkle_top", w], "level_chain": device_ms(lambda: level_chain(level), 4),
+                        "bound": bound_at("merkle_top", w)[0]}
+        if w // 2 in top_sweep:  # the time of the level of w / 2 parents, the widest of the w-wide top
+            top_sweep[w]["marginal"] = timed["merkle_top", w] - timed["merkle_top", w // 2]
     # a tree split at w: the top kernel from w, a level launch at each wider width to 2^13
     split_ms = {w: timed["merkle_top", w] + sum(timed["merkle_level", v] for v in TOP_SWEEP if v > w)
                 for w in TOP_SWEEP}
@@ -1004,7 +1156,7 @@ def main() -> int:
     report["merkle_top"] = (timed["merkle_top", top], call_ms(lambda: dm.merkle_top_plain(level_in[top])),
                             *bound_at("merkle_top", top))
     errs["merkle_top"] = 0
-    say("merkle_top", max_abs_err=top_errs, top_width=top, sweep=top_sweep, split_ms=split_ms,
+    say("merkle_top", max_abs_err=top_errs, top_width=top, launch_floor_ms=floor_ms, sweep=top_sweep, split_ms=split_ms,
         cheapest_split=min(split_ms, key=split_ms.get), level_ms={w: timed["merkle_level", w] for w in level_in},
         ms={"kernel": report["merkle_top"][0], "plain": report["merkle_top"][1], "bound": report["merkle_top"][2],
             "bound_by": report["merkle_top"][3]})
@@ -1068,6 +1220,7 @@ def main() -> int:
         tree_2e13_root=tree.root.hex(), auth_paths_checked=opened)
     say("mont_digits", sizes=list(DIGIT_SIZES), max_abs_err=digit_errs, ms=digits_ms,
         bound_ms={k: bound_at("mont_digits", k)[0] for k in DIGIT_SIZES})
+    say("mont_digits_gather", max_abs_err=gather_errs, calls=gather_counts, ms=gather_ms, launch_floor_ms=floor_ms)
 
     fold_errs = {}
     for logn in (13, 20):
@@ -1113,6 +1266,7 @@ def main() -> int:
                           call_ms(lambda: fs_round_plain(body, FS_BODY_BYTES, 4, root)),
                           *bound_at("fs_round", FS_BODY_BYTES))
     say("fs_kernel", body_lengths_checked=fs_lengths + list(FS_CASCADE_BODIES), against=["plain", "hashlib"],
+        launch_floor_ms=floor_ms,
         timed_body_bytes=FS_BODY_BYTES, cascade_ms={n: timed["fs_round", n] for n in FS_CASCADE_BODIES},
         ms={"kernel": report["fs_round"][0], "plain": report["fs_round"][1], "bound": report["fs_round"][2],
             "bound_by": report["fs_round"][3]})
@@ -1454,10 +1608,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with guard.count_plain_calls() as plain_cold:
+    with (guard.count_plain_calls() as plain_cold,
+          watch_gathers(kernels, guard, device_prover, Stark, cuda_merkle) as fib_gathers):
         result, proof = model.prove(a, b)
         torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
+    fib_gather_calls = fib_gathers.check("the 2^16-step prove", ["gather_values_async"])
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     cold_split = combination_split(model.stark.last_profile)
     launches = dict(kernels.LAUNCHES)
@@ -1477,6 +1633,9 @@ def main() -> int:
         raise AssertionError(f"the 2^16-step prove called field_ops on CUDA tensors: {dict(plain_cold)}")
     if launches["combination"] != 1:
         raise AssertionError(f"the 2^16-step prove launched the combination {launches['combination']} times")
+    if launches["merkle_top"] != len(PROVE_TREES):
+        raise AssertionError(f"the 2^16-step prove launched merkle_top {launches['merkle_top']} times, "
+                             f"expected one a tree ({len(PROVE_TREES)})")
     if model.stark._device_air_groups(model.stark._device_core(), model._constraints)[1] != FIB_STRUCTURE:
         raise AssertionError("the 2^16-step prove's AIR structure is not the one phase 2 checked")
     unchecked = sorted(set(ntt_launches) - set(ntt_sizes))
@@ -1526,7 +1685,8 @@ def main() -> int:
     trace_build_s = time.perf_counter() - t0
     say("prove", steps=steps, fri_domain=model.stark.fri_domain_length, prove_seconds=prove_s,
         warm_prove_seconds=warm_prove_s, verify_seconds=verify_s, proof_bytes=len(proof), fused_fri_rounds=fused,
-        launches=launches, warm_launches=warm_launches, ntt_launches_by_size=ntt_launches, stages_seconds=stages,
+        launches=launches, warm_launches=warm_launches, opening_gathers=fib_gather_calls,
+        ntt_launches_by_size=ntt_launches, stages_seconds=stages,
         warm_stages_seconds=warm_stages, warm_unstaged_seconds=unstaged_s, trace_build_seconds=trace_build_s,
         plain_field_ops_on_cuda={"cold": sum(plain_cold.values()), "warm": sum(plain_warm.values())},
         combination_split={"cold": cold_split, "warm": warm_split}, peak_device_mib=peak_mib,
@@ -1561,6 +1721,12 @@ def main() -> int:
         if name == "mont_digits":
             x = limbs.from_numpy(limbs.seeded_mont(size, size), dev)
             return lambda: cuda_merkle.mont_digits(x)
+        if name == "mont_digits_gather":  # size values: of one codeword, or of the fewest that stay under the cap
+            g = -(-size // cuda_merkle.GATHER_MAX_INDICES)
+            while size % g:
+                g += 1
+            idx = gather_indices(1 << 20, size // g, size)
+            return lambda: cuda_merkle.mont_digits([mont] * g, idx)
         raise AssertionError(f"no timer for {name} at launch size {size}")
 
     def kernel_sums(by_size, launches, own):
@@ -1599,6 +1765,15 @@ def main() -> int:
     digits_in = limbs.from_numpy(limbs.seeded_mont(digits_main, digits_main), dev)
     report["mont_digits"] = (timed["mont_digits", digits_main], call_ms(lambda: dm.plain_digits(digits_in)),
                              *bound_at("mont_digits", digits_main))
+    # the gather's row: the launch size it spends most of the prove's time at
+    gather_sizes_ms = {size: v["mont_digits_gather"] * timed["mont_digits_gather", size]
+                       for size, v in by_size.items() if "mont_digits_gather" in v}
+    gather_main = max(gather_sizes_ms, key=gather_sizes_ms.get)
+    gather_idx = gather_indices(1 << 20, gather_main, 11) if gather_main <= cuda_merkle.GATHER_MAX_INDICES else None
+    report["mont_digits_gather"] = (
+        timed["mont_digits_gather", gather_main],
+        call_ms(lambda: dm.plain_digits(mont[:, gather_idx])) if gather_idx else None,
+        *bound_at("mont_digits_gather", gather_main))
     # the levels the top kernel hashes, as the chain of level launches it replaces
     small_levels_before = sum(v["merkle_top"] * top_sweep[size]["level_chain"]
                               for size, v in by_size.items() if "merkle_top" in v)
@@ -1641,10 +1816,12 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with guard.count_plain_calls() as chain_plain_cold:
+        with (guard.count_plain_calls() as chain_plain_cold,
+              watch_gathers(kernels, guard, device_prover, Stark, cuda_merkle) as chain_gathers):
             chain_out, chain_proof = chain.prove(x)
             torch.cuda.synchronize()
         chain_cold_s = time.perf_counter() - t0
+        chain_gather_calls = chain_gathers.check("the chain prove", ["gather_values_async"])
         chain_cold_split = combination_split(chain.stark.last_profile)
         chain_launches = dict(kernels.LAUNCHES)
         chain_by_size = {n: dict(v) for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
@@ -1686,6 +1863,8 @@ def main() -> int:
     missing = [k for k in pipeline if chain_launches[k] <= 0]
     if missing:
         raise AssertionError(f"the chain prove never launched {missing}: {chain_launches}")
+    if chain_launches["merkle_top"] != len(PROVE_TREES):
+        raise AssertionError(f"the chain prove launched merkle_top {chain_launches['merkle_top']} times")
     if any(chain_launches[k] for k in kernels.PROBES):
         raise AssertionError(f"the chain prove launched a probe kernel: {chain_launches}")
     if sorted(set(chain_ntt) - set(ntt_sizes)):
@@ -1704,6 +1883,15 @@ def main() -> int:
         raise AssertionError("the host verifier rejects the card's chain proof")
     if chain_verifier.verify(chain_out + FieldElement(1), chain_proof):
         raise AssertionError("the host verifier accepts a wrong chain output")
+    # the card's model verifies too: its AIR values at the queries are one
+    # gather launch over the group codewords its prove built
+    with watch_gathers(kernels, guard, device_prover, Stark, cuda_merkle) as card_verify:
+        t0 = time.perf_counter()
+        ok = chain.verify(chain_out, chain_proof)
+        chain_card_verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the card's chain model rejects its own proof")
+    card_verify_calls = card_verify.check("the chain verify on the card", ["_device_air_group_values"])
     # K11 with the chain's own structure and group codewords (built by its
     # prove, cached), at 2^13 (their first 8192 points) and 2^20, against
     # its plain version; timed at 2^20
@@ -1734,7 +1922,9 @@ def main() -> int:
         max_abs_err=chain_comb_errs, ms=chain_comb)
     chain_ms, chain_bound_ms, chain_calls = kernel_sums(
         chain_by_size, chain_launches, own={("combination", 1 << 20): (chain_comb["kernel"], chain_comb["bound"])})
-    say("chain_kernels", verify_seconds=chain_verify_s, prove_ms=chain_ms, prove_bound_ms=chain_bound_ms,
+    say("chain_kernels", verify_seconds=chain_verify_s, card_verify_seconds=chain_card_verify_s,
+        opening_gathers={"prove": chain_gather_calls, "card_verify": card_verify_calls},
+        prove_ms=chain_ms, prove_bound_ms=chain_bound_ms,
         by_size=[{"size": size, **{k: {"launches": c, "ms": chain_calls[k, size]} for k, c in v.items()}}
                  for size, v in chain_by_size.items()])
 
@@ -1759,6 +1949,7 @@ def main() -> int:
         "rescue_permutation": ("stark_tpu_torch/csrc/rescue.cu", "stark_tpu/ops/rescue.py:92"),
         "combination": ("stark_tpu_torch/csrc/combination.cu", "stark_tpu/ops/device_prover.py:695"),
         "mont_digits": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/device_prover.py:54"),
+        "mont_digits_gather": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/device_prover.py:64"),
         **{name: ("stark_tpu_torch/csrc/probes.cu", rep) for name, (_, rep) in probes.items()},
     }
     # launches on each kernel's own path: the fib-2^16 prove, prove_batch's
@@ -1774,6 +1965,7 @@ def main() -> int:
          "max_abs_err": errs[name], "ms": report[name][0], "plain_ms": report[name][1],
          "bound_ms": report[name][2], "bound_by": report[name][3], "library_ms": library_ms.get(name),
          "function_bound_ms": function_bound.get(name),
+         "launch_floor_ms": floor_ms if name in LATENCY_BOUND else None,
          "prove_ms": on_prove(name, prove_ms[name]), "prove_bound_ms": on_prove(name, prove_bound_ms[name]),
          "chain_launches": chain_launches[name], "chain_prove_ms": on_prove(name, chain_ms[name]),
          "chain_prove_bound_ms": on_prove(name, chain_bound_ms[name])}

@@ -34,7 +34,28 @@
 // trips, and what it pays is a block's chain of depth compressions, one
 // compress's latency a level.  No more blocks than SMs: each SM then
 // hashes its share of every level in one block.  The top kernel is the
-// one-block, one-subtree case of the same level loop (hash_levels).
+// one-block, one-subtree case of the same level loop (hash_levels) as far
+// as its levels are wide.
+//
+// A narrow level is bound by one compress's latency, not by the SM's ALU
+// work: a level of 64 parents or fewer fills at most two of the SM's warps
+// with one thread a parent, and a scheduler feeds one warp's ALU
+// instructions one every 2 clocks, ~3,700 clocks a compress however few of
+// its lanes hash.  So the top kernel hashes each such level with a compress
+// split over four lanes (hash_top_levels, quad_compress), as the SIMD
+// Blake2b implementations split it over a vector's four columns: the
+// 16-word state is four rows a, b, c, d; lane i of a quad holds column i
+// of each row and runs one G function a half-round; before the diagonal
+// half-round rows b, c and d rotate by 1, 2 and 3 lanes (warp shuffles
+// inside the quad, two a word) and after it they rotate back.  A lane
+// issues about a quarter of a compress, and the compress takes its
+// dependent chain of 24 G functions and 24 shuffle steps.  The parent's
+// message block goes to shared memory, one row a quad, and each lane reads
+// its four words a round at the SIGMA offsets of its column, a constant a
+// round selected by the lane (quad_sigma), so no lane indexes a register
+// array.  Levels of more than 64 parents keep one thread a parent: there
+// the SM's ALU work is the bound, and the shuffles would add to it.  The
+// subtrees kernel keeps hash_levels.
 //
 // Layouts are the JAX package's: digits (4, n) and digest words (8, w),
 // u32 bits held in int32 tensors.
@@ -47,7 +68,11 @@
 // instructions beside the compress's ~1.1k) and hashes as before, so no
 // digit array is written and read again.  The same conversion alone
 // (mont_digits_kernel) serves the opening gathers and the host fetches of
-// small codewords (_plain_digits / _value_gather there).  The level kernel reads its children
+// small codewords (_plain_digits there), and its gather form
+// (mont_digits_gather_kernel) the opening gathers (_value_gather there):
+// it reads the columns of up to kGatherMaxCodewords codewords itself, at
+// indices passed by value, so a gather is one launch, bound by the launch
+// (a few hundred elements of 48 bytes).  The level kernel reads its children
 // (2i, 2i + 1) itself; the even/odd split of the TPU version was a Mosaic
 // restriction, as was its 256-wide minimum level.
 
@@ -64,7 +89,10 @@ using stark::blake2b256_block;
 using stark::store_digest;
 
 constexpr int kThreads = 256;
-constexpr int kTopThreads = 1024;
+// threads of the top kernel at most: its widest level's parents take turns
+// beyond them, and the bound leaves each thread up to 128 registers, so the
+// level loop keeps its state out of local memory
+constexpr int kTopThreads = 512;
 // widest level the top kernel takes: its two shared buffers (w/2 and w/4
 // digests of 32 bytes) then fill 192 KB of the SM's 227 KB
 constexpr int64_t kTopMaxWidth = 8192;
@@ -76,6 +104,25 @@ constexpr size_t top_smem_bytes(int64_t w) { return static_cast<size_t>(24 * w);
 // block takes (kSubChunk / 2 threads hash one parent each at level 1)
 constexpr int kSubThreads = 256;
 constexpr int64_t kSubChunk = 256;
+// the top kernel hashes a level of at most this many parents four lanes a
+// parent, a wider one a thread a parent
+constexpr int64_t kQuadMaxParents = 64;
+// the gather form of the digit conversion: codewords and indices a launch
+constexpr int kGatherMaxCodewords = 64;
+constexpr int kGatherMaxIndices = 256;
+constexpr int kGatherThreads = 128;
+
+// threads of the top kernel at width w: a thread a parent of its widest
+// level (at most kTopThreads) and four lanes a parent of its narrow levels,
+// at least one warp
+constexpr int top_threads(int64_t w) {
+    int64_t threads = 32;
+    for (int64_t half = w / 2; half >= 1; half /= 2) {
+        const int64_t lanes = half > kQuadMaxParents ? (half > kTopThreads ? kTopThreads : half) : 4 * half;
+        if (lanes > threads) threads = lanes;
+    }
+    return static_cast<int>(threads);
+}
 
 // Element i of an (8, n) Montgomery limb array as its plain base-2^32 digits.
 __device__ __forceinline__ stark::Fe plain_digits_of(const int32_t* __restrict__ mont, int64_t n, int64_t i) {
@@ -117,6 +164,34 @@ __global__ void mont_digits_kernel(const int32_t* __restrict__ mont, uint32_t* _
     const stark::Fe v = plain_digits_of(mont, n, i);
 #pragma unroll
     for (int k = 0; k < 4; ++k) digits[k * n + i] = v.w[k];
+}
+
+// One gather of the opening values: column g * group_stride + r (from
+// `first`) of the (4, stride) digits is element indices[r] of codeword g.
+// Passed by value (__grid_constant__): the pointers and indices are read
+// from the parameter bank, and nothing is uploaded for a gather.
+struct GatherParams {
+    const int32_t* codewords[kGatherMaxCodewords];  // (8, n) Montgomery limbs each
+    uint32_t indices[kGatherMaxIndices];             // each < n
+    int32_t* digits;
+    int64_t n;
+    int64_t stride;        // columns of the digits' rows
+    int64_t group_stride;  // columns between two codewords' values
+    int64_t first;         // column of codeword 0's value at indices[0]
+    int32_t n_codewords;
+    int32_t n_indices;
+};
+
+__global__ void __launch_bounds__(kGatherThreads) mont_digits_gather_kernel(const __grid_constant__ GatherParams p) {
+    const int t = static_cast<int>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= p.n_codewords * p.n_indices) return;
+    const int g = t / p.n_indices;
+    const int r = t - g * p.n_indices;
+    const stark::Fe v = plain_digits_of(p.codewords[g], p.n, p.indices[r]);
+    const int64_t col = p.first + g * p.group_stride + r;
+    uint32_t* const digits = reinterpret_cast<uint32_t*>(p.digits);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) digits[k * p.stride + col] = v.w[k];
 }
 
 // Parent i of the planar (8, w) level src (global or shared memory):
@@ -165,13 +240,133 @@ __device__ __forceinline__ void hash_levels(const uint32_t* __restrict__ in, uin
     }
 }
 
+// The message words lane `lane` of a quad reads in round r: its column G's
+// (SIGMA[r][2 lane], SIGMA[r][2 lane + 1]) and its diagonal G's
+// (SIGMA[r][8 + 2 lane], SIGMA[r][9 + 2 lane]), four bits each.  Rounds 10
+// and 11 repeat rounds 0 and 1.
+__host__ __device__ constexpr uint32_t quad_sigma(int lane, int r) {
+    const uint8_t sigma[10][16] = {
+        {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}, {14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3},
+        {11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4}, {7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8},
+        {9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13}, {2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9},
+        {12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11}, {13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10},
+        {6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5}, {10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0}};
+    const uint8_t* row = sigma[r % 10];
+    return row[2 * lane] | row[2 * lane + 1] << 4 | row[8 + 2 * lane] << 8 | row[9 + 2 * lane] << 12;
+}
+
+// x of the lane `by` places on in the quad; every lane of the warp calls it
+__device__ __forceinline__ uint64_t quad_rotate(uint64_t x, int lane, int by) {
+    return __shfl_sync(0xFFFFFFFFu, static_cast<unsigned long long>(x), (lane + by) & 3, 4);
+}
+
+// Rounds kRound .. 11 of quad_compress, each round's message offsets a
+// compile-time constant chosen by the lane (a select, no memory), made just
+// before the round reads them.
+template <int kRound>
+__device__ __forceinline__ void quad_rounds(uint64_t& a, uint64_t& b, uint64_t& c, uint64_t& d, const uint64_t* m,
+                                            int lane) {
+    if constexpr (kRound < 12) {
+        constexpr uint32_t s0 = quad_sigma(0, kRound), s1 = quad_sigma(1, kRound);
+        constexpr uint32_t s2 = quad_sigma(2, kRound), s3 = quad_sigma(3, kRound);
+        const uint32_t s = lane == 0 ? s0 : lane == 1 ? s1 : lane == 2 ? s2 : s3;
+        stark::blake2b_g(a, b, c, d, m[s & 15], m[(s >> 4) & 15]);
+        b = quad_rotate(b, lane, 1);
+        c = quad_rotate(c, lane, 2);
+        d = quad_rotate(d, lane, 3);
+        stark::blake2b_g(a, b, c, d, m[(s >> 8) & 15], m[s >> 12]);
+        b = quad_rotate(b, lane, 3);
+        c = quad_rotate(c, lane, 2);
+        d = quad_rotate(d, lane, 1);
+        quad_rounds<kRound + 1>(a, b, c, d, m, lane);
+    }
+}
+
+// One final-block Blake2b-256 compress (byte counter 64) of the 16 message
+// words m (shared memory), split over a quad: lane `lane` holds column lane
+// of the state's rows a, b, c, d and returns digest word `lane`.  Every lane
+// of the warp calls it.
+__device__ __forceinline__ uint64_t quad_compress(const uint64_t* m, int lane) {
+    using namespace stark;
+    const uint64_t h = lane == 0 ? kH0 : lane == 1 ? kIV1 : lane == 2 ? kIV2 : kIV3;
+    uint64_t a = h;
+    uint64_t b = lane == 0 ? kIV4 : lane == 1 ? kIV5 : lane == 2 ? kIV6 : kIV7;
+    uint64_t c = lane == 0 ? kIV0 : lane == 1 ? kIV1 : lane == 2 ? kIV2 : kIV3;
+    uint64_t d = lane == 0 ? kIV4 ^ 64 : lane == 1 ? kIV5 : lane == 2 ? ~kIV6 : kIV7;
+    quad_rounds<0>(a, b, c, d, m, lane);
+    return h ^ a ^ c;
+}
+
+// The top kernel's level loop: the levels above the (8, w) level `in`
+// (global memory) down to the root, each to its (8, w / 2^k) slab of `out`
+// and to one of two shared buffers (even, odd), from which the next level
+// reads it.  A level of more than kQuadMaxParents parents hashes a parent a
+// thread (as hash_levels), a narrower one a parent a quad of lanes, its
+// message staged in row `parent` of `msg` (words 8 .. 15 zero).  Every lane
+// of a warp that holds a parent runs the compress, so the shuffles name the
+// whole warp; a quad past the level's last parent (levels of fewer than 8)
+// hashes its stale row and stores nothing.  The warp's branch is a vote
+// (__any_sync), which the compiler knows to be the same in every lane: with
+// a branch on the thread index it wraps each shuffle in a convergence
+// sequence (a WARPSYNC and an ENDCOLLECTIVE each).  Every thread of the
+// block must call this.
+__device__ __forceinline__ void hash_top_levels(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int64_t w,
+                                                uint32_t* even, uint32_t* odd, uint64_t (*msg)[17]) {
+    const int lane = threadIdx.x & 3;
+    const int64_t quad = threadIdx.x >> 2;
+    if (quad < kQuadMaxParents) {
+        msg[quad][8 + 2 * lane] = 0;
+        msg[quad][9 + 2 * lane] = 0;
+    }
+    const uint32_t* src = in;
+    int64_t plane = w;  // row stride of src
+    uint32_t* dst = even;
+#pragma unroll 1
+    for (int64_t half = w / 2; half >= 1; half /= 2) {
+        if (half > kQuadMaxParents) {
+#pragma unroll 1
+            for (int64_t i = threadIdx.x; i < half; i += blockDim.x) {
+                uint64_t h[4];
+                hash_parent(src, plane, i, h);
+                store_digest(dst, half, i, h);
+                store_digest(out, half, i, h);
+            }
+        } else if (__any_sync(0xFFFFFFFFu, quad < half)) {  // the warp holds a parent
+            const bool mine = quad < half;
+            if (mine) {
+                // words 2 lane and 2 lane + 1 of row 2 lane's plane: the
+                // lane's message words m[lane] (left child) and m[4 + lane]
+                const uint2 lo = reinterpret_cast<const uint2*>(src + (2 * lane) * plane)[quad];
+                const uint2 hi = reinterpret_cast<const uint2*>(src + (2 * lane + 1) * plane)[quad];
+                msg[quad][lane] = lo.x | (static_cast<uint64_t>(hi.x) << 32);
+                msg[quad][4 + lane] = lo.y | (static_cast<uint64_t>(hi.y) << 32);
+            }
+            __syncwarp();
+            const uint64_t h = quad_compress(msg[quad], lane);
+            if (mine) {
+                const uint32_t h_lo = static_cast<uint32_t>(h), h_hi = static_cast<uint32_t>(h >> 32);
+                dst[(2 * lane) * half + quad] = h_lo;
+                dst[(2 * lane + 1) * half + quad] = h_hi;
+                out[(2 * lane) * half + quad] = h_lo;
+                out[(2 * lane + 1) * half + quad] = h_hi;
+            }
+        }
+        __syncthreads();
+        out += 8 * half;
+        src = dst;
+        plane = half;
+        dst = dst == even ? odd : even;
+    }
+}
+
 // Every level of the (8, w) subtree in one block, w a power of two, down
 // to the root.
 __global__ void __launch_bounds__(kTopThreads) top_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                                                           int64_t w) {
     extern __shared__ uint2 top_shared[];  // uint2: the 8-byte alignment of the paired loads
+    __shared__ uint64_t msg[kQuadMaxParents][17];  // a quad's message block; 17: quads apart by two banks
     uint32_t* const even = reinterpret_cast<uint32_t*>(top_shared);
-    hash_levels(in, out, w, 0, w, __ffsll(w) - 1, even, even + 8 * (w / 2));
+    hash_top_levels(in, out, w, even, even + 8 * (w / 2), msg);
 }
 
 // `depth` levels above the (8, w) level, a block a chunk of `chunk`
@@ -213,6 +408,21 @@ extern "C" int stark_mont_digits(const int32_t* mont, int32_t* digits, int64_t n
     return cudaGetLastError();
 }
 
+// params: a GatherParams, filled by ops/cuda_merkle.py.
+extern "C" int stark_mont_digits_gather(const void* params, void* stream) {
+    const GatherParams& p = *static_cast<const GatherParams*>(params);
+    if (p.n_codewords < 1 || p.n_codewords > kGatherMaxCodewords || p.n_indices < 1 ||
+        p.n_indices > kGatherMaxIndices || p.n < 1)
+        return cudaErrorInvalidValue;
+    const int elements = p.n_codewords * p.n_indices;
+    mont_digits_gather_kernel<<<(elements + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(p);
+    return cudaGetLastError();
+}
+
+// sizeof(GatherParams), for the wrapper's check of its copy of the layout
+extern "C" int stark_mont_digits_gather_params_size() { return static_cast<int>(sizeof(GatherParams)); }
+
 // level: (8, w) with w even; out: (8, w / 2).
 extern "C" int stark_merkle_level(const int32_t* level, int32_t* out, int64_t w, void* stream) {
     if (w < 2 || w % 2) return cudaErrorInvalidValue;
@@ -230,8 +440,7 @@ extern "C" int stark_merkle_top(const int32_t* level, int32_t* out, int64_t w, v
     const cudaError_t opt_in = cudaFuncSetAttribute(top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                     static_cast<int>(top_smem_bytes(kTopMaxWidth)));
     if (opt_in != cudaSuccess) return opt_in;
-    const int threads = static_cast<int>(w / 2 < 32 ? 32 : w / 2 > kTopThreads ? kTopThreads : w / 2);
-    top_kernel<<<1, threads, top_smem_bytes(w), static_cast<cudaStream_t>(stream)>>>(
+    top_kernel<<<1, top_threads(w), top_smem_bytes(w), static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const uint32_t*>(level), reinterpret_cast<uint32_t*>(out), w);
     return cudaGetLastError();
 }

@@ -319,3 +319,14 @@ extern "C" int stark_probe_level_rounds(const int32_t* level, int32_t* out, int6
     }
     return cudaGetLastError();
 }
+
+// The launch floor: a kernel that does nothing, one warp.  It replaces no
+// TPU kernel; chip_smoke.py times it (ops/timing.launch_floor_ms) as the
+// least a launch takes on the card, beside the kernels bound by their
+// latency (merkle_top, fs_round, the opening gathers).
+__global__ void empty_kernel() {}
+
+extern "C" int stark_launch_floor(void* stream) {
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+    return cudaGetLastError();
+}

@@ -15,11 +15,15 @@ raises.
 
 K4 also takes the prover's (8, n) Montgomery codewords as they are
 (:func:`merkle_leaves_mont`: the conversion to plain digits in the
-kernel's loads), and :func:`mont_digits` runs that conversion alone
-(``stark_mont_digits``) for the opening gathers and the host fetches: the
+kernel's loads), and :func:`mont_digits` runs that conversion alone: on a
+whole codeword (``stark_mont_digits``) for the host fetches, and, given
+``indices``, on those columns of one or more codewords
+(``stark_mont_digits_gather``, counted as ``mont_digits_gather``) for the
+opening gathers, one launch a gather that reads its columns itself: the
 JAX package's jitted ``_plain_digits`` / ``_value_gather``
-(stark_tpu/ops/device_prover.py:54, :63), whose plain version here is
-:func:`stark_tpu_torch.ops.device_merkle.plain_digits`.
+(stark_tpu/ops/device_prover.py:55, :65), whose plain version here is
+:func:`stark_tpu_torch.ops.device_merkle.plain_digits` (of the indexed
+columns, concatenated codeword by codeword).
 
 A tree (:func:`tree_levels`) runs the leaf kernel, then the level kernel,
 one launch a level, while its level is wider than :data:`SUBTREE_WIDTH`,
@@ -31,6 +35,9 @@ one XLA function.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Union
 
 import torch
 
@@ -49,6 +56,11 @@ SUBTREE_WIDTH = 1 << 19
 # widest level the top kernel takes, and the widest subtree a block of the
 # subtrees kernel hashes (their shared memory; csrc/merkle.cu kTopMaxWidth)
 _TOP_MAX_WIDTH = 8192
+#: codewords and indices one launch of the gather form takes
+#: (csrc/merkle.cu kGatherMaxCodewords, kGatherMaxIndices); a larger gather
+#: is split into several launches
+GATHER_MAX_CODEWORDS = 64
+GATHER_MAX_INDICES = 256
 
 
 def _check(name: str, t: torch.Tensor, rows: int) -> None:
@@ -104,10 +116,22 @@ def merkle_leaves_mont(mont: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mont_digits(mont: torch.Tensor) -> torch.Tensor:
-    """(8, K) Montgomery limbs -> (4, K) plain base-2^32 digits (``int32``
-    holding u32 bits): one launch of ``stark_mont_digits`` on the card,
-    :func:`~stark_tpu_torch.ops.device_merkle.plain_digits` on the CPU."""
+def mont_digits(mont: Union[torch.Tensor, Sequence[torch.Tensor]], indices=None) -> torch.Tensor:
+    """Plain base-2^32 digits (``int32`` holding u32 bits) of Montgomery limbs.
+
+    Without ``indices``: the (8, K) tensor ``mont`` -> (4, K), one launch of
+    ``stark_mont_digits`` on the card.  With ``indices`` (ints in [0, n)):
+    ``mont`` is one (8, n) codeword or a sequence of G of them, and the
+    result the (4, G * K) digits of columns ``indices`` of each, codeword
+    by codeword (column g K + r is codeword g at indices[r]): one launch of
+    ``stark_mont_digits_gather`` a gather of at most
+    :data:`GATHER_MAX_CODEWORDS` codewords and :data:`GATHER_MAX_INDICES`
+    indices, several for a larger one; the kernel reads the columns itself,
+    so no index tensor is copied to the card and no other kernel runs.  On
+    the CPU: :func:`~stark_tpu_torch.ops.device_merkle.plain_digits`, of the
+    indexed columns."""
+    if indices is not None:
+        return _gather_digits([mont] if isinstance(mont, torch.Tensor) else list(mont), [int(i) for i in indices])
     _check("mont", mont, 8)
     k = int(mont.shape[1])
     if k == 0:
@@ -117,6 +141,73 @@ def mont_digits(mont: torch.Tensor) -> torch.Tensor:
     out = torch.empty((4, k), dtype=torch.int32, device=mont.device)
     kernels.launch("mont_digits", "stark_mont_digits", kernels.ptr(mont), kernels.ptr(out), k,
                    device=mont.device, size=k)
+    return out
+
+
+class _GatherParams(ctypes.Structure):
+    """csrc/merkle.cu ``GatherParams``, field for field."""
+
+    _fields_ = [
+        ("codewords", ctypes.c_void_p * GATHER_MAX_CODEWORDS),
+        ("indices", ctypes.c_uint32 * GATHER_MAX_INDICES),
+        ("digits", ctypes.c_void_p),
+        ("n", ctypes.c_int64),
+        ("stride", ctypes.c_int64),
+        ("group_stride", ctypes.c_int64),
+        ("first", ctypes.c_int64),
+        ("n_codewords", ctypes.c_int32),
+        ("n_indices", ctypes.c_int32),
+    ]
+
+
+def gather_launches(codewords: Sequence[torch.Tensor], indices: Sequence[int], out: torch.Tensor):
+    """The :class:`_GatherParams` of each launch of a gather of ``indices``
+    from ``codewords`` into the (4, G * K) ``out``: blocks of at most
+    GATHER_MAX_CODEWORDS codewords by GATHER_MAX_INDICES indices."""
+    k = len(indices)
+    n = int(codewords[0].shape[1])
+    launches = []
+    for g0 in range(0, len(codewords), GATHER_MAX_CODEWORDS):
+        cws = codewords[g0 : g0 + GATHER_MAX_CODEWORDS]
+        for r0 in range(0, k, GATHER_MAX_INDICES):
+            idx = indices[r0 : r0 + GATHER_MAX_INDICES]
+            p = _GatherParams()
+            for j, cw in enumerate(cws):
+                p.codewords[j] = cw.data_ptr()
+            for j, i in enumerate(idx):
+                p.indices[j] = i
+            p.digits, p.n, p.stride, p.group_stride = out.data_ptr(), n, int(out.shape[1]), k
+            p.first, p.n_codewords, p.n_indices = g0 * k + r0, len(cws), len(idx)
+            launches.append(p)
+    return launches
+
+
+def _gather_digits(codewords, indices) -> torch.Tensor:
+    if not codewords:
+        raise ValueError("no codewords to gather from")
+    if not indices:
+        raise ValueError("no indices to gather")
+    for cw in codewords:
+        _check("codeword", cw, 8)
+    n = int(codewords[0].shape[1])
+    if any(int(cw.shape[1]) != n for cw in codewords):
+        raise ValueError(f"codewords of different lengths: {sorted({int(cw.shape[1]) for cw in codewords})}")
+    if not all(0 <= i < n for i in indices):
+        raise ValueError(f"an index outside [0, {n}): {min(indices)} .. {max(indices)}")
+    devices = {cw.device for cw in codewords}
+    if len(devices) != 1:
+        raise ValueError(f"codewords on different devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return torch.cat([plain_digits(cw[:, indices]) for cw in codewords], dim=1)
+    lib = kernels.library()
+    if lib.stark_mont_digits_gather_params_size() != ctypes.sizeof(_GatherParams):
+        raise RuntimeError(f"GatherParams is {lib.stark_mont_digits_gather_params_size()} bytes in the library, "
+                           f"{ctypes.sizeof(_GatherParams)} here")
+    out = torch.empty((4, len(codewords) * len(indices)), dtype=torch.int32, device=dev)
+    for p in gather_launches(codewords, indices, out):
+        kernels.launch("mont_digits_gather", "stark_mont_digits_gather", ctypes.addressof(p), device=dev,
+                       size=p.n_codewords * p.n_indices)
     return out
 
 

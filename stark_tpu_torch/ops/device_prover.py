@@ -21,7 +21,8 @@ conversions into Montgomery form run through the field vector kernels
 (:mod:`stark_tpu_torch.ops.cuda_field`: K9, K7 and K10 on the card), the
 combination through K11 (:mod:`stark_tpu_torch.ops.cuda_combination`),
 the conversion out of it through ``mont_digits``
-(:func:`stark_tpu_torch.ops.cuda_merkle.mont_digits`).  No function of
+(:func:`stark_tpu_torch.ops.cuda_merkle.mont_digits`; an opening gather
+is one launch of its gather form).  No function of
 :mod:`stark_tpu_torch.ops.field_ops` runs on a CUDA tensor here.
 """
 
@@ -112,8 +113,7 @@ class DeviceCodeword:
         idx = sorted({int(i) for i in indices} - self._val_cache.keys())
         if not idx:
             return [], None
-        cols = self.mont[:, torch.tensor(idx, device=self.mont.device)]
-        return idx, mont_digits(cols.contiguous())
+        return idx, mont_digits(self.mont, idx)
 
     def absorb_values(self, idx, digits_cols: np.ndarray) -> None:
         """Fill the value cache from a fetched (4, K) digit gather."""

@@ -9,6 +9,11 @@ the given device type, so a run can show that its path called none on the
 card.  The comparison ``is_zero`` is not arithmetic and is not counted.
 Calls through references taken before the block (none on a path of a
 prove) are not seen.
+
+:func:`count_device_ops` counts, for the span of a ``with`` block, every
+PyTorch operation that puts a tensor on the given device type (an index,
+a concatenation, a copy to the card, an allocation), so a run can show
+that a step launched its hand kernel and nothing else.
 """
 
 from __future__ import annotations
@@ -51,3 +56,34 @@ def count_plain_calls(device_type: str = "cuda"):
     finally:
         for name, fn in originals.items():
             setattr(fo, name, fn)
+
+
+#: the operations a kernel's wrapper itself runs: the allocation of its outputs
+ALLOCATION = frozenset({"aten.empty.memory_format"})
+
+
+@contextlib.contextmanager
+def count_device_ops(device_type: str = "cuda"):
+    """Within the block, a Counter of the ATen operations (by overload name,
+    e.g. ``aten.index.Tensor``) whose result holds a tensor on
+    ``device_type``.  A hand kernel launched through ``ctypes`` is not an
+    ATen operation and is not counted; its wrapper's allocations are
+    (:data:`ALLOCATION`)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts: Counter = Counter()
+
+    def on_device(out) -> bool:
+        if isinstance(out, torch.Tensor):
+            return out.device.type == device_type
+        return isinstance(out, (tuple, list)) and any(on_device(o) for o in out)
+
+    class Counting(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if on_device(out):
+                counts[str(func)] += 1
+            return out
+
+    with Counting():
+        yield counts

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "stark_merkle_leaves": [_P, _P, _I64, _P],
     "stark_merkle_leaves_mont": [_P, _P, _I64, _P],
     "stark_mont_digits": [_P, _P, _I64, _P],
+    "stark_mont_digits_gather": [_P, _P],
+    "stark_mont_digits_gather_params_size": [],
     "stark_merkle_level": [_P, _P, _I64, _P],
     "stark_merkle_top": [_P, _P, _I64, _P],
     "stark_merkle_subtrees": [_P, _P, _I64, _I, _P],
@@ -68,6 +70,7 @@ _SIGNATURES = {
     "stark_probe_mont16_chain": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
     "stark_probe_level_stub": [_P, _P, _I64, _P],
     "stark_probe_level_rounds": [_P, _P, _I64, _I, _P],
+    "stark_launch_floor": [_P],
 }
 
 #: the timing probes' kernels (``csrc/probes.cu``, :mod:`.cuda_probes`),
@@ -79,14 +82,15 @@ PROBES = ("probe_mont13_chain", "probe_mont_chain", "probe_mont16_chain/base", "
 LAUNCHES: Dict[str, int] = {
     "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_subtrees": 0, "merkle_top": 0,
     "fri_fold": 0, "fs_round": 0, "mont_inv": 0, "prefix_mul": 0, "geometric_table": 0, "mont_binary": 0,
-    "rescue_permutation": 0, "combination": 0, "mont_digits": 0,
+    "rescue_permutation": 0, "combination": 0, "mont_digits": 0, "mont_digits_gather": 0,
     **{name: 0 for name in PROBES},
 }
 #: size of the launch -> kernel name -> launches since the last reset: the
 #: transform's points (NTT passes), the leaves or the input level's width
 #: (Merkle kernels and B4), the codeword's length (fold), the body's bytes
-#: (fs_round), the elements (field kernels, the digit conversion, B1-B3),
-#: the instances (rescue_permutation) or the points (combination)
+#: (fs_round), the elements (field kernels, the digit conversion and its
+#: gather form, B1-B3), the instances (rescue_permutation) or the points
+#: (combination)
 LAUNCHES_BY_SIZE: Dict[int, Dict[str, int]] = {}
 
 _lock = threading.Lock()

@@ -4,7 +4,10 @@
   the card, so the events see the kernels back to back: the kernel's own
   time per launch, with the wrapper's host time off the clock;
 * :func:`call_ms`: one call from an idle queue, what a caller waits,
-  the wrapper's host time included.
+  the wrapper's host time included;
+* :func:`launch_floor_ms`: :func:`device_ms` of a kernel that does
+  nothing (``csrc/probes.cu`` ``stark_launch_floor``), the least a launch
+  takes on the card.
 
 Each is the median of ``REPS`` repetitions (``call_ms``: of ``reps``).
 """
@@ -56,3 +59,18 @@ def call_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launch_floor_ms(device) -> float:
+    """:func:`device_ms` of one launch of an empty kernel on ``device``'s
+    current stream; measurement only, counted in no launch counter."""
+    from . import kernels
+
+    lib = kernels.library()
+
+    def launch():
+        err = lib.stark_launch_floor(torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"stark_launch_floor failed with CUDA error {err}")
+
+    return device_ms(launch)

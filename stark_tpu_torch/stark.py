@@ -724,9 +724,8 @@ class Stark:
             core, transition_constraints
         )
         idx = sorted(set(int(i) for i in indices))
-        sel = torch.tensor(idx, device=core.device)
-        cols = torch.cat([cw[:, sel] for cw in group_cws], dim=1)
-        digits = to_numpy(mont_digits(cols.contiguous())).T  # (G * K, 4), group-major
+        # one gather launch for every group codeword: (G * K, 4), group-major
+        digits = to_numpy(mont_digits(group_cws, idx)).T
         k = len(idx)
         out = []
         for s in range(len(transition_constraints)):

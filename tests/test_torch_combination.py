@@ -12,7 +12,11 @@
   beyond the kernel's limits;
 * the Montgomery-input leaves (K4's plain version) and the gather digits
   (``mont_digits``' plain version) against the JAX package's
-  ``_plain_digits`` and the tree of ``test_torch_merkle.py``;
+  ``_plain_digits`` and the tree of ``test_torch_merkle.py``; the gather
+  form (``mont_digits(codewords, indices)``) against ``_value_gather``, on
+  one codeword and several (concatenated codeword by codeword), the
+  packing of its launches past the kernel's caps, its refusals, and the
+  prover's gather through it;
 * the conversions on K10's plain version (``cuda_field.to_mont`` /
   ``from_mont``; the randomizer's ``be17_mont`` is in
   ``test_torch_fs.py``), the four-step plan at
@@ -186,6 +190,82 @@ def test_mont_digits_plain_matches_jax_plain_digits(mont, k):
     assert np.array_equal(to_numpy(got), np.asarray(jdp._plain_digits(jnp.asarray(cols))))
 
 
+def _gather_indices(k):
+    """k sorted columns of the 2048-value codeword, its first and last among them from two on."""
+    if k == 1:
+        return [N_LEAVES - 1]
+    inner = np.random.default_rng(k).choice(np.arange(1, N_LEAVES - 1), k - 2, replace=False)
+    return [0] + sorted(int(i) for i in inner) + [N_LEAVES - 1]
+
+
+@pytest.mark.parametrize("k", [1, 4, 37])
+def test_mont_digits_gather_matches_jax_value_gather(mont, k):
+    idx = _gather_indices(k)
+    got = cuda_merkle.mont_digits(from_numpy(mont, "cpu"), idx)
+    assert got.shape == (4, k)
+    want = np.asarray(jdp._value_gather(jnp.asarray(mont), jnp.asarray(idx, dtype=jnp.int32)))
+    assert np.array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("g", [2, 27])
+def test_mont_digits_gather_of_several_codewords_is_group_major(mont, g):
+    """Codeword j is the values' codeword rolled by j columns; the gather
+    equals JAX's gathers of each, concatenated codeword by codeword."""
+    cws = [np.ascontiguousarray(np.roll(mont, j, axis=1)) for j in range(g)]
+    idx = _gather_indices(4)
+    got = cuda_merkle.mont_digits([from_numpy(cw, "cpu") for cw in cws], idx)
+    want = np.concatenate([np.asarray(jdp._value_gather(jnp.asarray(cw), jnp.asarray(idx, dtype=jnp.int32)))
+                           for cw in cws], axis=1)
+    assert got.shape == (4, g * 4)
+    assert np.array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("case", ["no_indices", "index_past_the_end", "negative_index", "different_lengths",
+                                  "no_codewords", "digits_not_limbs"])
+def test_mont_digits_gather_refuses(mont, case):
+    cw = from_numpy(mont, "cpu")
+    args = {"no_indices": ([cw], []), "index_past_the_end": ([cw], [0, N_LEAVES]), "negative_index": ([cw], [-1]),
+            "different_lengths": ([cw, cw[:, :-1].contiguous()], [0]), "no_codewords": ([], [0]),
+            "digits_not_limbs": ([cw[:4].contiguous()], [0])}[case]
+    with pytest.raises(ValueError):
+        cuda_merkle.mont_digits(*args)
+
+
+def test_mont_digits_gather_launches_split_at_the_caps(mont):
+    """Past the kernel's caps the wrapper packs several launches: 65
+    codewords by 257 indices are 2 x 2 blocks, each at its offset in the
+    (4, G K) output."""
+    cw = from_numpy(mont, "cpu")
+    g, k = cuda_merkle.GATHER_MAX_CODEWORDS + 1, cuda_merkle.GATHER_MAX_INDICES + 1
+    out = torch.empty((4, g * k), dtype=torch.int32)
+    idx = list(range(k))
+    launches = cuda_merkle.gather_launches([cw] * g, idx, out)
+    assert [(p.first, p.n_codewords, p.n_indices) for p in launches] == [
+        (0, 64, 256), (256, 64, 1), (64 * k, 1, 256), (64 * k + 256, 1, 1)]
+    assert all(p.n == N_LEAVES and p.stride == g * k and p.group_stride == k for p in launches)
+    assert list(launches[1].indices[:1]) == [256] and launches[0].codewords[63] == cw.data_ptr()
+
+
+def test_device_codeword_gathers_through_the_gather_form(mont, monkeypatch):
+    """The prover's opening gather hands the codeword and its uncached
+    sorted indices to mont_digits' gather form, whose digits equal JAX's
+    _value_gather."""
+    from stark_tpu_torch.ops import device_prover as tdp
+
+    seen = []
+
+    def spy(m, indices=None):
+        seen.append(indices)
+        return cuda_merkle.mont_digits(m, indices)
+
+    monkeypatch.setattr(tdp, "mont_digits", spy)
+    dcw = tdp.DeviceCodeword(from_numpy(mont, "cpu"), core=None)
+    idx, arr = dcw.gather_values_async([N_LEAVES - 1, 5, 0, 5])
+    assert idx == [0, 5, N_LEAVES - 1] and seen == [idx]
+    want = np.asarray(jdp._value_gather(jnp.asarray(mont), jnp.asarray(idx, dtype=jnp.int32)))
+    assert np.array_equal(to_numpy(arr), want)
+
+
 def test_mont_leaves_plain_matches_the_digit_leaves(mont):
     digits = np.asarray(jdp._plain_digits(jnp.asarray(mont)))
     got = cuda_merkle.merkle_leaves_mont(from_numpy(mont, "cpu"))
@@ -246,6 +326,20 @@ def test_four_step_plan_at_the_small_sizes_equals_the_stage_plan(logn):
     assert torch.equal(four.inverse(a), stage.inverse(a))
     assert torch.equal(four.coset_forward(a, GENERATOR), stage.coset_forward(a, GENERATOR))
     assert torch.equal(four.coset_inverse(a, GENERATOR), stage.coset_inverse(a, GENERATOR))
+
+
+def test_guard_counts_device_ops_but_not_kernel_launches():
+    a = from_numpy(seeded_mont(16, 1), "cpu")
+    with guard.count_device_ops("cpu") as counts:
+        torch.cat([a[:, [1, 3]], a[:, :2]], dim=1)
+        torch.empty(3)
+    # the index list goes to the tensors' device first (lift_fresh), as an
+    # index tensor made from a list would go to the card
+    assert dict(counts) == {"aten.lift_fresh.default": 1, "aten.index.Tensor": 1, "aten.slice.Tensor": 1,
+                            "aten.cat.default": 1, "aten.empty.memory_format": 1}
+    with guard.count_device_ops("cuda") as counts:
+        cuda_merkle.mont_digits(a, [0, 2])  # the plain gather on the CPU: nothing on a card
+    assert sum(counts.values()) == 0
 
 
 def test_guard_counts_plain_arithmetic_on_the_device_type():

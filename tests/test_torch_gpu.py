@@ -101,6 +101,23 @@ def test_merkle_top_matches_plain(cuda, log_w):
     assert torch.equal(got, dm.merkle_top_plain(level))
 
 
+@pytest.mark.parametrize("w", [128, 256, 8192])
+def test_merkle_top_matches_the_level_kernel(cuda, w):
+    """Where the top kernel's lanes a hash change (64 parents and fewer: a
+    quad of lanes a parent; 128 and more: a thread) and at its widest, its
+    slabs equal the chain of level launches (K5), another kernel's hashes."""
+    from stark_tpu_torch.ops import cuda_merkle
+    from stark_tpu_torch.ops import device_merkle as dm
+
+    level = torch.tensor(np.random.default_rng(w + 1).integers(0, 1 << 32, (8, w), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32), device=cuda)
+    got = dm.top_slabs(cuda_merkle.merkle_top(level), w)
+    chain = [cuda_merkle.merkle_level(level)]
+    while chain[-1].shape[1] > 1:
+        chain.append(cuda_merkle.merkle_level(chain[-1]))
+    assert len(got) == len(chain) and all(torch.equal(a, b) for a, b in zip(got, chain))
+
+
 # the subtrees kernel at every width a tree hands it, down to TOP_WIDTH, and
 # at small and full depths
 SUBTREE_CASES = [(1 << k, k - 9) for k in range(10, 20)] + [(2, 1), (64, 3), (1024, 1), (8192, 4), (1024, 10),
@@ -631,6 +648,51 @@ def test_mont_leaves_and_mont_digits_match_plain(cuda, n):
     digits = _launched("mont_digits", lambda: cuda_merkle.mont_digits(mont))
     assert torch.equal(digits, dm.plain_digits(mont))
     assert torch.equal(leaves, cuda_merkle.merkle_leaves(digits))
+
+
+@pytest.mark.parametrize("k", [1, 4, 37, 257])
+@pytest.mark.parametrize("g", [1, 27])
+def test_mont_digits_gather_matches_plain(cuda, g, k):
+    """The gather form on g codewords at k indices (first and last columns
+    among them): the plain gather's digits, one launch under the kernel's
+    caps (two at 257 indices), and nothing else on the card but the
+    output's allocation."""
+    import random
+
+    from stark_tpu_torch.ops import cuda_merkle, guard, kernels
+    from stark_tpu_torch.ops import device_merkle as dm
+
+    n = 65545
+    cws = [_field_mont(n, 300 + j, cuda) for j in range(g)]
+    idx = [n - 1] if k == 1 else [0] + sorted(random.Random(k).sample(range(1, n - 1), k - 2)) + [n - 1]
+    before = kernels.LAUNCHES["mont_digits_gather"]
+    with guard.count_device_ops() as ops:
+        got = cuda_merkle.mont_digits(cws, idx)
+    assert kernels.LAUNCHES["mont_digits_gather"] - before == (1 if k <= cuda_merkle.GATHER_MAX_INDICES else 2)
+    assert set(ops) <= guard.ALLOCATION, dict(ops)
+    assert torch.equal(got, torch.cat([dm.plain_digits(cw[:, idx]) for cw in cws], dim=1))
+
+
+def test_opening_gathers_on_the_card_are_one_launch(cuda, monkeypatch):
+    """fib-1000 on the card: every opening gather of values launches the
+    gather kernel once and runs nothing else on the card."""
+    from stark_tpu_torch.models.fibonacci import FibonacciStark
+    from stark_tpu_torch.ops import device_prover, guard, kernels
+
+    calls = []
+    gather = device_prover.DeviceCodeword.gather_values_async
+
+    def watched(self, indices):
+        before = kernels.LAUNCHES["mont_digits_gather"]
+        with guard.count_device_ops() as ops:
+            idx, arr = gather(self, indices)
+        calls.append((len(idx), kernels.LAUNCHES["mont_digits_gather"] - before, dict(ops)))
+        return idx, arr
+
+    monkeypatch.setattr(device_prover.DeviceCodeword, "gather_values_async", watched)
+    FibonacciStark(1000, device=cuda, rng=DeterministicRandom(11)).prove(FieldElement(3), FieldElement(7))
+    assert any(k for k, _, _ in calls)
+    assert all(launched == (1 if k else 0) and set(ops) <= guard.ALLOCATION for k, launched, ops in calls), calls
 
 
 @pytest.mark.parametrize("logn", range(6, 13))
