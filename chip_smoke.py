@@ -62,7 +62,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    the combination kernel (K11) with fib's AIR structure at 2^13 and 2^20
    against its plain version (the program's interpreter), timed at 2^20,
    its bound from the distinct codewords it reads and the products a point
-   its program needs;
+   its program needs; its next-row form (``combination_next``) at 2^13 and
+   at a shard's 2^20 / ``MESH_SHARDS`` points, and K10's row-by-column form
+   (``mont_outer``) at the sharded prove's table shapes, each against its
+   plain version, timed at the mesh prove's largest shape;
 2b. the TPU timing probes B1-B4 through their entry points
    (``stark_tpu_torch.benches``: ``lazy_limb_experiment``, ``quick_timing``,
    ``mont_mul_experiments``, ``merkle_roofline``, each ``run``), launch
@@ -125,10 +128,47 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    combination's cold and warm split, K11 with the chain's own structure
    and group codewords at 2^13 and 2^20 against its plain version (timed at
    2^20), and each kernel's device time in that prove;
-6. a JSON line of the kernels, K11 (``combination``), ``mont_digits`` and
-   ``mont_digits_gather`` among them (``launches``: the fib-2^16 prove's, R1's
-   in prove_batch, the probes' in phase 2b; ``chain_launches`` and
-   ``chain_prove_ms``: the chain prove's; the probes' prove times null;
+6. the service (``stark_tpu_torch.serve``): ``make_server(ProverService(
+   device="cuda"))`` on a free localhost port in a thread, then in order
+   ``GET /healthz``; a fib-2^16 ``POST /prove`` (cold: the model built
+   under the gate; then warm) that verifies through ``POST /verify``; a
+   Rescue prove that verifies; a second prove while a first holds the gate
+   (``queue_timeout_s`` lowered): 503 with Retry-After; ``steps`` = 2^17
+   rejected with 4xx and no model built (``_build`` counted); hostile
+   bodies (malformed JSON, not an object, unknown model, bad hex, a body
+   over 64 MB) each 4xx; the request seconds;
+7. the mesh (``stark_tpu_torch.parallel``): ``MESH_SHARDS`` shards on
+   ``cuda:0``, or laid over every card where there are several; first the
+   counterpart of the JAX package's multichip dryrun: ``ShardedNTT`` at
+   n = 4096 (forward, inverse, the inverse from the four-step layout with
+   a coset) against the one-device ``CudaNTT`` limb for limb, two
+   shard-local folds against K6 on the whole codeword, a sharded tree's
+   root and auth paths against the one-device tree's, and a batch of 32
+   Rescue states split over the shards (one R1 launch a shard) against
+   one R1 launch over the batch; the coset transform at 2^20 against
+   ``CudaNTT``'s, and the device ms of the coset transform, a fold and a
+   tree over the mesh beside one device's, and of a chunk exchange and
+   the next-row operand, at 2^20; then FibonacciStark(65536) over the mesh
+   with phase 4's seed and statement, byte-identical to phase 4's proof
+   and verified by the host verifier, cold and warm (beside phase 4's
+   seconds), with its launches of each kernel (every kernel of the
+   sharded path > 0, K11's one-device form 0 and its next-row form once
+   a shard), ``count_plain_calls`` 0, peak device MiB and the chunk
+   exchanges' calls and bytes; then RescueChainStark(4) over a mesh of 4
+   shards (its 1024-point domain gives a shard of 8 shards 4 columns,
+   below the NTT passes' cluster of 8) with ``device_prover_min`` 1024,
+   byte-identical to the host prover, its combination the next-row form;
+8. a JSON line of the kernels, K11 (``combination``), ``mont_digits`` and
+   ``mont_digits_gather`` among them, and the variants of the sharded path,
+   K11's next-row form (``combination_next``) and K10's row-by-column
+   form (``mont_outer``), checked and timed in phase 2 at a shard's shape
+   of the mesh prove (``launches``: the fib-2^16 prove's, the variants'
+   in the mesh prove, R1's in prove_batch, the probes' in phase 2b;
+   ``mesh_launches``: the mesh prove's; ``prove_ms`` and
+   ``prove_bound_ms``: the fib-2^16 prove's, the variants' the mesh
+   prove's (their launches at each size times their time and bound there);
+   ``chain_launches`` and ``chain_prove_ms``: the chain prove's; the
+   probes' prove times null;
    ``library_ms`` the stub's library call, else null;
    ``function_bound_ms`` B2's bound for the three chains of the field
    product, else null; ``launch_floor_ms`` the empty kernel's time beside
@@ -264,6 +304,17 @@ GATHER_CODEWORDS = (1, 27)
 GATHER_TIMED = {"fib": (1, 4), "chain": (27, 4)}
 # the kernels bound by their latency at the main path's shape, beside which
 # the kernels line sets the launch floor (an empty kernel's time)
+# the mesh of phase 7: its shards
+MESH_SHARDS = 8
+# the kernels every per-shard step of the mesh prove runs (no cascade: no
+# fs_round; host trace interpolation: no prefix_mul; blocks of 2^17: no
+# level kernel)
+MESH_PATH = ("ntt_pass1", "ntt_pass2", "mont_binary", "mont_inv", "geometric_table", "mont_outer", "merkle_leaves",
+             "merkle_subtrees", "merkle_top", "fri_fold", "combination_next", "mont_digits", "mont_digits_gather")
+# mont_outer's checked shapes (rows x columns): edges, then the fib-2^16
+# mesh prove's tables (fold: C/2 x R/D as C halves; shift: C x R/D), the
+# largest last
+MESH_OUTER_SHAPES = ((1, 1), (3, 5), (1000, 7), (8, 128), (64, 128), (512, 128), (1024, 128))
 LATENCY_BOUND = ("merkle_top", "fs_round", "mont_digits_gather")
 # the chain probes that compute the field product a * t^10 * 2^-1280: B2
 # (``fe_mul``) and B3's base and hint16 (the TPU's 16-bit CIOS)
@@ -807,6 +858,273 @@ def proves_of(tree: str) -> int:
     return 0
 
 
+def http(url: str, path: str, payload=None, body: bytes = None, headers=None):
+    """(status, JSON body, headers) of one request to the service."""
+    import urllib.error
+    import urllib.request
+
+    data = body if body is not None else None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data, headers=headers or {},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def service_phase(fib_steps: int, fib_bytes: int) -> dict:
+    """Phase 6: the service on the card, in a thread of this process; every
+    failure raises."""
+    import threading
+
+    from stark_tpu_torch import serve
+
+    service = serve.ProverService(device="cuda")
+    built = []
+    build = service._build
+    service._build = lambda kind, key: built.append(key) or build(kind, key)
+    server = serve.make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    out = {}
+    try:
+        code, health, _ = http(url, "/healthz")
+        if code != 200 or health != {"ok": True, "backend": "cuda", "models": serve.MODELS}:
+            raise AssertionError(f"healthz: {code} {health}")
+        fib = {"model": "fibonacci", "steps": fib_steps, "a": "3", "b": "7"}
+        seconds = []
+        for _ in range(2):  # cold (the model built under the gate), then warm
+            t0 = time.perf_counter()
+            code, proved, _ = http(url, "/prove", fib)
+            seconds.append(time.perf_counter() - t0)
+            if code != 200:
+                raise AssertionError(f"the fib-{fib_steps} prove answered {code}: {proved}")
+        code, verdict, _ = http(url, "/verify", dict(fib, proof=proved["proof"], output=proved["output"]))
+        if code != 200 or verdict["valid"] is not True:
+            raise AssertionError(f"the service's fib-{fib_steps} proof does not verify: {code} {verdict}")
+        # a proof's length moves with the decimal lengths of the field
+        # elements it holds (the service draws its randomness from the OS)
+        if abs(proved["proof_bytes"] - fib_bytes) > 2048:
+            raise AssertionError(f"the service's fib proof has {proved['proof_bytes']} bytes, phase 4's {fib_bytes}")
+        code, wrong, _ = http(url, "/verify", dict(fib, proof=proved["proof"], output=["12345"]))
+        if code != 200 or wrong["valid"] is not False:
+            raise AssertionError(f"the service accepts a wrong fib output: {code} {wrong}")
+        t0 = time.perf_counter()
+        code, rescue, _ = http(url, "/prove", {"model": "rescue", "input": "12345"})
+        rescue_s = time.perf_counter() - t0
+        code_v, rescue_ok, _ = http(url, "/verify", {"model": "rescue", "proof": rescue.get("proof", ""),
+                                                     "output": rescue.get("output")})
+        if code != 200 or code_v != 200 or rescue_ok["valid"] is not True:
+            raise AssertionError(f"the rescue prove / verify answered {code} / {code_v}: {rescue_ok}")
+        # a prove holding the gate, and a second request that cannot wait
+        held = {}
+        first = threading.Thread(target=lambda: held.update(zip(("code", "body", "headers"), http(url, "/prove", fib))))
+        service.queue_timeout_s = 0.2
+        first.start()
+        deadline = time.perf_counter() + 60
+        while not service._work_gate.locked() and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        code, busy, headers = http(url, "/prove", {"model": "rescue", "input": "1"})
+        first.join()
+        service.queue_timeout_s = 30.0
+        if code != 503 or not headers.get("Retry-After") or held.get("code") != 200:
+            raise AssertionError(f"the second prove under a held gate answered {code} ({busy}, Retry-After "
+                                 f"{headers.get('Retry-After')}); the first {held.get('code')}")
+        before = list(built)
+        code, big, _ = http(url, "/prove", {"model": "fibonacci", "steps": 1 << 17})
+        if not 400 <= code < 500 or built != before:
+            raise AssertionError(f"steps = 2^17 answered {code} {big}, models built {built[len(before):]}")
+        hostile = {"malformed": http(url, "/prove", body=b"{not json")[0],
+                   "not_an_object": http(url, "/prove", body=b"[1]")[0],
+                   "unknown_model": http(url, "/prove", {"model": "nope"})[0],
+                   "bad_hex": http(url, "/verify", {"model": "rescue", "proof": "zz", "output": ["1"]})[0],
+                   "too_large": http(url, "/prove", body=b"{}",
+                                     headers={"Content-Length": str(serve.MAX_BODY_BYTES + 1)})[0]}
+        if not all(400 <= c < 500 for c in hostile.values()):
+            raise AssertionError(f"hostile bodies: {hostile}")
+        out = {"healthz": health, "fib_steps": fib_steps, "cold_request_seconds": seconds[0],
+               "warm_request_seconds": seconds[1], "prove_s": proved["prove_s"],
+               "proof_bytes": proved["proof_bytes"], "verify_s": verdict["verify_s"],
+               "rescue_request_seconds": rescue_s, "busy": {"status": 503, "retry_after": headers.get("Retry-After")},
+               "oversized": {"status": code, "models_built": built}, "hostile": hostile}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    return out
+
+
+def mesh_phase(torch, dev, fib_steps: int, fib_claim, fib_proof: bytes, one_device: dict) -> dict:
+    """Phase 7: the counterpart of the JAX package's multichip dryrun, then
+    the fib-2^16 prove over the mesh against phase 4's proof (``fib_claim``:
+    (a, b, result) of that prove; ``one_device``: its seconds and MiB),
+    then chain-4 over a mesh of 4 against the host prover.  Every failure
+    raises."""
+    from stark_tpu_torch.field import FieldElement
+    from stark_tpu_torch.models.fibonacci import FibonacciStark
+    from stark_tpu_torch.models.rescue_chain import RescueChainStark
+    from stark_tpu_torch.ops import cuda_ntt, cuda_rescue, guard, kernels, limbs
+    from stark_tpu_torch.ops.device_merkle import DeviceMerkleTree
+    from stark_tpu_torch.ops.device_prover import DeviceCodeword, get_core
+    from stark_tpu_torch.ops.timing import device_ms
+    from stark_tpu_torch.parallel import ShardedBackend, ShardedNTT, make_mesh
+    from stark_tpu_torch.parallel.mesh import EXCHANGES, exchange, reset_exchange_counts
+    from stark_tpu_torch.parallel.merkle_sharded import ShardedMerkleTree
+    from stark_tpu_torch.parallel.stark_sharded import ShardedProverCore
+    from stark_tpu_torch.params import GENERATOR, P
+    from stark_tpu_torch.rng import DeterministicRandom
+
+    mesh = make_mesh(MESH_SHARDS)  # round-robin over every card: all on cuda:0 where there is one
+    out = {"mesh": [str(d) for d in mesh]}
+    # 1. the sharded transform against the one-device plan, limb for limb
+    n = 4096
+    x = limbs.from_numpy(limbs.seeded_mont(n, 41), dev)
+    plan = cuda_ntt.get_cuda_plan(n, dev)
+    sntt = ShardedNTT(n, mesh)
+    mat = sntt.shard_input(sntt.to_matrix(x))
+    fwd = sntt.forward(mat)
+    checks = {"forward": torch.equal(sntt.from_output_matrix(fwd), plan.forward(x)),
+              "inverse": torch.equal(sntt.from_output_matrix(sntt.inverse(mat)), plan.inverse(x)),
+              "coset_round_trip": torch.equal(
+                  sntt.inverse_from_fourstep(sntt.forward(mat, GENERATOR), GENERATOR).gather().reshape(8, n), x)}
+    # 2. two shard-local folds against K6 on the whole codeword
+    m = 1 << 14
+    core = ShardedProverCore(m, GENERATOR, mesh)
+    whole_core = get_core(m, GENERATOR, dev)
+    coeffs = [int(v) for v in limbs.unpack(limbs.seeded_mont(m // 4, 43))]
+    cw, whole = core.extend_codeword(coeffs), whole_core.extend_codeword(coeffs)
+    checks["extend"] = torch.equal(core.sntt.from_output_matrix(cw.mont), whole.mont)
+    omega, offset = FieldElement.primitive_nth_root(m).value, GENERATOR
+    for r, alpha in enumerate((1234567, 7654321)):
+        cw, whole = core.fold(cw, alpha, offset, omega), whole_core.fold(whole, alpha, offset, omega)
+        checks[f"fold_{r}"] = torch.equal(cw.mont.gather().reshape(8, -1), whole.mont)
+        omega, offset = omega * omega % P, offset * offset % P
+    # 3. a sharded tree (a device subtree a block) against the one-device tree
+    t = 1 << 17
+    tree_core = ShardedProverCore(t, GENERATOR, mesh)
+    tcw = tree_core.extend_codeword(coeffs)
+    tree = tree_core.merkle_tree(tcw)
+    one = DeviceMerkleTree(get_core(t, GENERATOR, dev).extend(coeffs))
+    picks = [0, 12345, t // 2 + 7, t - 1]
+    checks["tree_is_sharded"] = isinstance(tree, ShardedMerkleTree)
+    checks["tree_root"] = tree.root == one.root
+    checks["tree_paths"] = all(tree.open(i) == one.open(i) for i in picks)
+    # 4. the dryrun's batched Rescue: 32 states over the shards, one R1
+    # launch a shard, against one launch over the batch
+    states = limbs.from_numpy(limbs.seeded_mont(65, 47)[:, 1:], dev).reshape(8, 2, 32).contiguous()
+    per = 32 // MESH_SHARDS
+    for trace in (False, True):
+        before = kernels.LAUNCHES["rescue_permutation"]
+        parts = [cuda_rescue.rescue_permutation(states[:, :, s * per:(s + 1) * per].contiguous().to(d), trace)
+                 .to(dev) for s, d in enumerate(mesh)]
+        launched = kernels.LAUNCHES["rescue_permutation"] - before
+        checks[f"rescue_{'trace' if trace else 'final'}"] = (
+            launched == MESH_SHARDS and torch.equal(torch.cat(parts, dim=-1),
+                                                    cuda_rescue.rescue_permutation(states, trace)))
+    # each step over the mesh against one device at the prove's 2^20 points:
+    # device time, a step's launches and copies queued twice behind a sleep
+    n20 = 1 << 20
+    big, one = ShardedProverCore(n20, GENERATOR, mesh), get_core(n20, GENERATOR, dev)
+    x20 = limbs.from_numpy(limbs.seeded_mont(n20, 53), dev)
+    s20 = big.sntt.shard_input(big.sntt.to_matrix(x20))
+    plan20 = cuda_ntt.get_cuda_plan(n20, dev)
+    cw20, whole20 = big.sntt.forward(s20, GENERATOR), plan20.coset_forward(x20, GENERATOR)
+    checks["coset_forward_2e20"] = torch.equal(big.sntt.from_output_matrix(cw20), whole20)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"the mesh dryrun failed {failed}")
+    out["dryrun"] = checks
+    omega20 = FieldElement.primitive_nth_root(n20).value
+    dcw_mesh, dcw_one = DeviceCodeword(cw20, big), DeviceCodeword(whole20, one)
+    steps = {"coset_transform": (lambda: big.sntt.forward(s20, GENERATOR),
+                                 lambda: plan20.coset_forward(x20, GENERATOR)),
+             "exchange": (lambda: exchange(cw20), None),
+             "next_rows": (lambda: big.next_rows(cw20, 4), None),
+             "fold": (lambda: big.fold(dcw_mesh, 12345, GENERATOR, omega20),
+                      lambda: one.fold(dcw_one, 12345, GENERATOR, omega20)),
+             "tree": (lambda: big.merkle_tree(DeviceCodeword(cw20, big)), lambda: DeviceMerkleTree(whole20))}
+    out["step_ms_2e20"] = {name: {"mesh": device_ms(on_mesh, 2), "one_device": device_ms(alone, 2) if alone else None}
+                           for name, (on_mesh, alone) in steps.items()}
+    del big, x20, s20, cw20, whole20, dcw_mesh, dcw_one, steps
+
+    # the fib-2^16 prove over the mesh, phase 4's seed and statement
+    a, b, result = fib_claim
+    backend = ShardedBackend(mesh)
+    model = FibonacciStark(fib_steps, backend=backend, rng=DeterministicRandom(SEED))
+    if model.stark.fri_domain_length != 1 << 20 or not model.stark._use_device_pipeline():
+        raise AssertionError("the mesh prove did not take the device pipeline on its 2^20-point domain")
+    kernels.reset_launch_counts()
+    reset_exchange_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with guard.count_plain_calls() as plain_cold:
+        got_result, proof = model.prove(a, b)
+        torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if k not in kernels.PROBES}
+    variants_by_size = {size: {k: c for k, c in v.items() if k in kernels.MESH_VARIANTS}
+                        for size, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
+    variants_by_size = {size: v for size, v in variants_by_size.items() if v}
+    exchanges = dict(EXCHANGES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
+    if got_result != result or proof != fib_proof:
+        raise AssertionError("the mesh's fib-2^16 proof differs from phase 4's one-device proof")
+    if sum(plain_cold.values()):
+        raise AssertionError(f"the mesh prove called field_ops on CUDA tensors: {dict(plain_cold)}")
+    missing = [k for k in MESH_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the mesh prove never launched {missing}: {launches}")
+    if launches["combination"] or launches["combination_next"] != MESH_SHARDS or launches["fs_round"]:
+        raise AssertionError(f"the mesh prove's combination and cascade launches: {launches}")
+    if model.stark.fri.last_fused_rounds:
+        raise AssertionError("the mesh prove fused FRI rounds on a core without a cascade")
+    t0 = time.perf_counter()
+    ok = FibonacciStark(fib_steps, device=None).verify(a, b, result, proof)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the host verifier rejects the mesh's proof")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with guard.count_plain_calls() as plain_warm:
+        model.prove(a, b)
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if sum(plain_warm.values()):
+        raise AssertionError(f"the warm mesh prove called field_ops on CUDA tensors: {dict(plain_warm)}")
+    out["fib"] = {"steps": fib_steps, "shards": MESH_SHARDS, "identical_to_one_device": True,
+                  "proof_bytes": len(proof), "prove_seconds": cold_s, "warm_prove_seconds": warm_s,
+                  "one_device": one_device, "verify_seconds": verify_s, "peak_device_mib": peak_mib,
+                  "launches": launches, "variants_by_size": variants_by_size, "plain_field_ops_on_cuda": {"cold": sum(plain_cold.values()),
+                                                                    "warm": sum(plain_warm.values())},
+                  "exchanges": exchanges, "stages_seconds": stages}
+    del model, backend
+
+    # chain-4 over 4 shards: its 1024-point domain at 8 shards would give a
+    # shard 4 columns, fewer than the NTT passes' cluster of 8
+    chain_mesh = make_mesh(4)
+    x = FieldElement(77)
+    host = RescueChainStark(4, device=None, rng=DeterministicRandom(SEED))
+    chain = RescueChainStark(4, backend=ShardedBackend(chain_mesh, device_prover_min=1024),
+                             rng=DeterministicRandom(SEED))
+    if not chain.stark._use_device_pipeline():
+        raise AssertionError("chain-4 did not take the device pipeline over the mesh")
+    kernels.reset_launch_counts()
+    with guard.count_plain_calls() as plain_chain:
+        chain_out = chain.prove(x)
+    chain_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if chain_out != host.prove(x) or sum(plain_chain.values()):
+        raise AssertionError(f"chain-4 over the mesh differs from the host prover (plain calls {dict(plain_chain)})")
+    if chain_launches.get("combination_next") != len(chain_mesh) or chain_launches.get("combination"):
+        raise AssertionError(f"chain-4 over the mesh launched {chain_launches}")
+    out["chain"] = {"hashes": 4, "shards": len(chain_mesh), "fri_domain": chain.stark.fri_domain_length,
+                    "identical_to_host": True, "proof_bytes": len(chain_out[1]), "launches": chain_launches}
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
@@ -842,7 +1160,8 @@ def main() -> int:
     dev = torch.device("cuda")
     # the kernels of the proving pipeline (the fib and chain paths); R1 runs
     # on prove_batch's, the probes on their own (phase 2b)
-    pipeline = [k for k in kernels.LAUNCHES if k != "rescue_permutation" and k not in kernels.PROBES]
+    pipeline = [k for k in kernels.LAUNCHES
+                 if k != "rescue_permutation" and k not in kernels.PROBES and k not in kernels.MESH_VARIANTS]
 
     # -- 1. environment ------------------------------------------------------
     nvcc_line = subprocess.run([kernels._nvcc(), "--version"], capture_output=True, text=True, check=True)
@@ -959,6 +1278,9 @@ def main() -> int:
             return bound(LIMB_BYTES * (size + (size - 1).bit_length() + 1), product * warps)
         if name == "mont_binary":  # the product of two full operands
             return bound(3 * LIMB_BYTES * size, product * warps)
+        if name == "mont_outer":  # a row and a column table in, their product out
+            cols = MESH_OUTER_SHAPES[-1][1]
+            return bound(LIMB_BYTES * (size + size // cols + cols), product * warps)
         raise AssertionError(f"no bound for {name}")
 
     # the top kernel: its one innermost loop is a thread a parent (the wide
@@ -1382,7 +1704,57 @@ def main() -> int:
     del comb_args
     say("combination_kernel", structure="fib", max_abs_err=comb_errs, powers=len(fib_program.powers),
         terms=len(fib_program.terms), ms=fib_comb,
-        warp_instructions_per_thread_without_loops=sass.count(sass.find(funcs, "combination_kernel"))._asdict())
+        warp_instructions_per_thread_without_loops=sass.count(sass.find(funcs, "combination_kernelILb0E"))._asdict())
+
+    # the sharded path's kernel variants at a shard's shape of the mesh prove
+    # (phase 7): K11's next-row form, the next rows read from planes of their
+    # own, and K10's row-by-column form, each against its plain version
+    shard_n = (1 << 20) // MESH_SHARDS
+    next_errs = {}
+    for m in (1 << 13, shard_n):
+        next_args = combination_operands(limbs, FIB_STRUCTURE, 5, m, 3000 + m.bit_length(), dev)
+        nexts = [limbs.from_numpy(limbs.seeded_mont(m, 5000 + j), dev) for j in range(2)]
+        before = kernels.LAUNCHES["combination_next"]
+        got = cuda_combination.combination(fib_program, *next_args, next_cws=nexts)
+        if kernels.LAUNCHES["combination_next"] != before + 1:
+            raise AssertionError(f"the next-row combination at {m} did not count one launch")
+        want = cuda_combination.combination_plain(fib_program, *next_args, nexts)
+        next_errs[m] = max(max_abs_err(torch, got[0], want[0]), max_abs_err(torch, got[1], want[1]))
+        del got, want
+    if any(next_errs.values()):
+        raise AssertionError(f"the next-row combination disagrees with its plain version: {next_errs}")
+    next_comb = {"kernel": device_ms(lambda: cuda_combination.combination(fib_program, *next_args, next_cws=nexts)),
+                 "one_device_form": device_ms(lambda: cuda_combination.combination(fib_program, *next_args)),
+                 "plain": call_ms(lambda: cuda_combination.combination_plain(fib_program, *next_args, nexts), reps=2),
+                 "bytes": combination_bytes(next_args) + LIMB_BYTES * shard_n * len(nexts),
+                 "products_per_point": program_products(fib_program)}
+    next_comb["bound"], next_comb["bound_by"] = bound(next_comb["bytes"],
+                                                      product * (next_comb["products_per_point"] * shard_n / 32))
+    report["combination_next"] = (next_comb["kernel"], next_comb["plain"], next_comb["bound"], next_comb["bound_by"])
+    errs["combination_next"] = 0
+    del next_args, nexts
+    outer_errs = {}
+    for rows_, cols_ in MESH_OUTER_SHAPES:
+        ta = limbs.from_numpy(limbs.seeded_mont(max(rows_, 3), 100 + rows_)[:, :rows_], dev)
+        tb = limbs.from_numpy(limbs.seeded_mont(max(cols_, 3), 200 + cols_)[:, :cols_], dev)
+        before = kernels.LAUNCHES["mont_outer"]
+        got = cuda_field.mont_outer(ta, tb)
+        if kernels.LAUNCHES["mont_outer"] != before + 1:
+            raise AssertionError(f"mont_outer at {rows_} x {cols_} did not count one launch")
+        outer_errs[f"{rows_}x{cols_}"] = max_abs_err(torch, got, cuda_field.mont_outer_plain(ta, tb))
+    if any(outer_errs.values()):
+        raise AssertionError(f"mont_outer disagrees with its plain version: {outer_errs}")
+    rows_, cols_ = MESH_OUTER_SHAPES[-1]  # the shift tables' C x R/D, the largest of the prove
+    outer_n = rows_ * cols_
+    outer = {"shape": [rows_, cols_], "kernel": device_ms(lambda: cuda_field.mont_outer(ta, tb)),
+             "plain": call_ms(lambda: cuda_field.mont_outer_plain(ta, tb))}
+    outer["bound"], outer["bound_by"] = bound(LIMB_BYTES * (outer_n + rows_ + cols_), product * (outer_n / 32))
+    report["mont_outer"] = (outer["kernel"], outer["plain"], outer["bound"], outer["bound_by"])
+    errs["mont_outer"] = 0
+    say("mesh_variants", combination_next={"max_abs_err": next_errs, "ms": next_comb,
+                                           "warp_instructions_per_thread_without_loops": sass.count(
+                                               sass.find(funcs, "combination_kernelILb1E"))._asdict()},
+        mont_outer={"max_abs_err": outer_errs, "ms": outer})
 
     # R1, the Rescue permutation, in both modes against its plain version;
     # 64 instances against the host model; the S-boxes of a trace inverted
@@ -1692,6 +2064,8 @@ def main() -> int:
         combination_split={"cold": cold_split, "warm": warm_split}, peak_device_mib=peak_mib,
         warm_peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
     print(f"fused FRI rounds: {fused}", flush=True)
+    fib_claim, fib_proof = (a, b, result), proof
+    one_device = {"prove_seconds": prove_s, "warm_prove_seconds": warm_prove_s, "peak_device_mib": peak_mib}
     say("ntt_sizes", rows=[{"n": n, "launches": ntt_launches.get(n, {}), **ntt_sizes[n]} for n in sorted(ntt_sizes)])
 
     # each kernel's device time in that prove: its launches at each size
@@ -1727,6 +2101,12 @@ def main() -> int:
                 g += 1
             idx = gather_indices(1 << 20, size // g, size)
             return lambda: cuda_merkle.mont_digits([mont] * g, idx)
+        if name == "mont_outer":  # the mesh prove's tables: rows x R/D, R/D the same for every table
+            cols = MESH_OUTER_SHAPES[-1][1]
+            rows = size // cols
+            ta = limbs.from_numpy(limbs.seeded_mont(max(rows, 3), size)[:, :rows], dev)
+            tb = limbs.from_numpy(limbs.seeded_mont(cols, cols), dev)
+            return lambda: cuda_field.mont_outer(ta, tb)
         raise AssertionError(f"no timer for {name} at launch size {size}")
 
     def kernel_sums(by_size, launches, own):
@@ -1928,11 +2308,29 @@ def main() -> int:
         by_size=[{"size": size, **{k: {"launches": c, "ms": chain_calls[k, size]} for k, c in v.items()}}
                  for size, v in chain_by_size.items()])
 
+    # -- 6. the service on the card ---------------------------------------------
+    t0 = time.perf_counter()
+    say("service", **service_phase(steps, len(fib_proof)), seconds=time.perf_counter() - t0)
+
+    # -- 7. the mesh -------------------------------------------------------------
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, dev, steps, fib_claim, fib_proof, one_device)
+    mesh_launches = mesh["fib"]["launches"]
+    say("mesh", **mesh, seconds=time.perf_counter() - t0)
+    # the variants' device time in the mesh prove: their launches at each
+    # size times their time (bound) there, K11's next-row form at phase 2's
+    # shard shape with fib's program
+    mesh_ms, mesh_bound_ms, _ = kernel_sums(
+        mesh["fib"]["variants_by_size"], {name: mesh_launches[name] for name in kernels.MESH_VARIANTS},
+        own={("combination_next", shard_n): (next_comb["kernel"], next_comb["bound"])})
+    prove_ms.update(mesh_ms)
+    prove_bound_ms.update(mesh_bound_ms)
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "stark_tpu") or m.startswith(("jax.", "stark_tpu.")))
     if leaked:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {leaked[:5]}")
 
-    # -- 6. result ------------------------------------------------------------
+    # -- 8. result ------------------------------------------------------------
     sources = {
         "ntt_pass1": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:234"),
         "ntt_pass2": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:311"),
@@ -1950,11 +2348,14 @@ def main() -> int:
         "combination": ("stark_tpu_torch/csrc/combination.cu", "stark_tpu/ops/device_prover.py:695"),
         "mont_digits": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/device_prover.py:54"),
         "mont_digits_gather": ("stark_tpu_torch/csrc/merkle.cu", "stark_tpu/ops/device_prover.py:64"),
+        "combination_next": ("stark_tpu_torch/csrc/combination.cu", "stark_tpu/parallel/stark_sharded.py:368"),
+        "mont_outer": ("stark_tpu_torch/csrc/fieldvec.cu", "stark_tpu/parallel/fold_sharded.py:61"),
         **{name: ("stark_tpu_torch/csrc/probes.cu", rep) for name, (_, rep) in probes.items()},
     }
     # launches on each kernel's own path: the fib-2^16 prove, prove_batch's
     # for R1, the probes' entry points (phase 2b) for theirs
-    path_launches = dict(launches, rescue_permutation=batch_launches["rescue_permutation"], **probe_launches)
+    path_launches = dict(launches, rescue_permutation=batch_launches["rescue_permutation"], **probe_launches,
+                         **{name: mesh_launches[name] for name in kernels.MESH_VARIANTS})
 
     def on_prove(name: str, value):
         """A prove's time of a kernel; None for a probe, on no prove's path."""
@@ -1967,6 +2368,7 @@ def main() -> int:
          "function_bound_ms": function_bound.get(name),
          "launch_floor_ms": floor_ms if name in LATENCY_BOUND else None,
          "prove_ms": on_prove(name, prove_ms[name]), "prove_bound_ms": on_prove(name, prove_bound_ms[name]),
+         "mesh_launches": mesh_launches.get(name),
          "chain_launches": chain_launches[name], "chain_prove_ms": on_prove(name, chain_ms[name]),
          "chain_prove_bound_ms": on_prove(name, chain_bound_ms[name])}
         for name, (src, rep) in sources.items()

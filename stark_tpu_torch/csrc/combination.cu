@@ -15,6 +15,15 @@
 //
 // and writes comb and every tq_c (the degree probe reads them).
 //
+// The next-row operand: a prover that splits the domain over shards (the
+// sharded core, stark_tpu_torch/parallel/stark_sharded.py) keeps a shard's
+// points in the four-step layout, where the point expansion steps on can
+// lie in another shard.  It passes, per trace column, the shard's next
+// rows as a codeword of their own (next[j][i] = trace column j at the
+// point after i), built by slices and copies; the kernel then reads the
+// next row at i from those planes.  It is an instantiation of its own
+// (kNextRows), so the one-device kernel's code is unchanged.
+//
 // The AIR's shape arrives as a program (ops/cuda_combination.py encodes it
 // on the host once a structure): the powers to build, each a state column
 // loaded or the square of an earlier power times the column where its
@@ -56,6 +65,8 @@ constexpr int kThreads = 128;     // points a block
 
 struct CombParams {
     const int32_t* trace[kMaxTrace];
+    // all null, or all n_trace set: trace column j at the next row, at i
+    const int32_t* next[kMaxTrace];
     const int32_t* groups[kMaxGroups];
     const int32_t* tz_inv[kMaxConstraints];
     const int32_t* tq_shift[kMaxConstraints];
@@ -101,6 +112,7 @@ using stark::fe_store;
 using stark::kMaxFactors;
 using stark::kThreads;
 
+template <bool kNextRows>
 __global__ void __launch_bounds__(kThreads) combination_kernel(const __grid_constant__ CombParams p) {
     extern __shared__ Fe slots[];  // slots[s * blockDim.x + threadIdx.x]
     const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -115,7 +127,11 @@ __global__ void __launch_bounds__(kThreads) combination_kernel(const __grid_cons
         const int base = p.pow_base[s], mul = p.pow_mul[s];
         Fe v;
         if (base < 0) {
-            v = mul < p.n_trace ? fe_load(p.trace[mul], n, i) : fe_load(p.trace[mul - p.n_trace], n, next);
+            if constexpr (kNextRows) {
+                v = mul < p.n_trace ? fe_load(p.trace[mul], n, i) : fe_load(p.next[mul - p.n_trace], n, i);
+            } else {
+                v = mul < p.n_trace ? fe_load(p.trace[mul], n, i) : fe_load(p.trace[mul - p.n_trace], n, next);
+            }
         } else {
             const Fe h = mine[base * stride];
             v = fe_mul(h, h);
@@ -161,7 +177,8 @@ __global__ void __launch_bounds__(kThreads) combination_kernel(const __grid_cons
 extern "C" int stark_combination_params_size() { return static_cast<int>(sizeof(CombParams)); }
 
 // One launch over the n points; *params is copied into the kernel's
-// parameter by value.  Refuses counts beyond the limits.
+// parameter by value.  Refuses counts beyond the limits.  With the next
+// pointers set it launches the next-row instantiation.
 extern "C" int stark_combination(const CombParams* params, void* stream) {
     using namespace stark;
     const CombParams& p = *params;
@@ -184,12 +201,17 @@ extern "C" int stark_combination(const CombParams* params, void* stream) {
                 if (p.term_slots[t][f] >= p.n_powers) return cudaErrorInvalidValue;
         }
     }
+    // the next-row operand: every trace column's planes or none
+    const bool next_rows = p.next[0] != nullptr;
+    for (int j = 0; j < kMaxTrace; ++j)
+        if ((p.next[j] != nullptr) != (next_rows && j < p.n_trace)) return cudaErrorInvalidValue;
     const size_t smem = static_cast<size_t>(p.n_powers > 0 ? p.n_powers : 1) * kThreads * sizeof(Fe);
     // above 48 KB only after opting in; the limit is the current device's, so opt in at every launch
-    const cudaError_t opt_in = cudaFuncSetAttribute(combination_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto kernel = next_rows ? combination_kernel<true> : combination_kernel<false>;
+    const cudaError_t opt_in = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                     static_cast<int>(kMaxPowers * kThreads * sizeof(Fe)));
     if (opt_in != cudaSuccess) return opt_in;
     const unsigned blocks = static_cast<unsigned>((p.n + kThreads - 1) / kThreads);
-    combination_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return cudaGetLastError();
 }

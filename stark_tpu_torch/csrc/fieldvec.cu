@@ -15,6 +15,11 @@
 //   K10 stark_mont_binary      a * b, a + b or a - b elementwise, either
 //                              operand an (8, 1) column broadcast along n:
 //                              field_ops.mont_mul / add / sub
+//       stark_mont_outer       its row-by-column form: out[i * c + j] =
+//                              a[i] * b[j], the separable tables of the
+//                              four-step layout (stark_tpu/parallel/
+//                              fold_sharded.py, stark_sharded.py: a row
+//                              table times a column table)
 //
 // Every element is a Montgomery value (R = 2^128) in the (8, n) 16-bit
 // limb layout, loaded and stored with field.cuh's helpers.  Field products
@@ -459,6 +464,18 @@ __global__ void binary_kernel(const int32_t* __restrict__ a, const int32_t* __re
     stark::fe_store(out, n, i, r);
 }
 
+// K10's row-by-column form: out[i * cols + j] = a[i] * b[j], a (8, rows)
+// and b (8, cols); one element a thread, stores coalesced, the two small
+// tables read through the cache.
+__global__ void outer_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                             int32_t* __restrict__ out, int64_t rows, int64_t cols) {
+    const int64_t k = global_index();
+    const int64_t n = rows * cols;
+    if (k >= n) return;
+    const int64_t i = k / cols;
+    stark::fe_store(out, n, k, fe_mul(stark::fe_load(a, rows, i), stark::fe_load(b, cols, k - i * cols)));
+}
+
 unsigned grid(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -512,5 +529,13 @@ extern "C" int stark_mont_binary(const int32_t* a, const int32_t* b, int32_t* ou
         case kSub: binary_kernel<kSub><<<grid(n), kThreads, 0, s>>>(a, b, out, n, a_col != 0, b_col != 0); break;
         default: return cudaErrorInvalidValue;
     }
+    return cudaGetLastError();
+}
+
+// a: (8, rows); b: (8, cols); out: (8, rows * cols).
+extern "C" int stark_mont_outer(const int32_t* a, const int32_t* b, int32_t* out, int64_t rows, int64_t cols,
+                                void* stream) {
+    if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+    outer_kernel<<<grid(rows * cols), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out, rows, cols);
     return cudaGetLastError();
 }

@@ -424,11 +424,14 @@ class Fri:
         trees: List[MerkleTree] = []
         cur = dcw
 
-        # fused commit cascade while codewords are device-tree sized
+        # fused commit cascade while codewords are device-tree sized, on a
+        # core that has one (a sharded core commits round by round below,
+        # with Fiat-Shamir on the host)
         n0 = len(cur)
         k = 0
-        while k < rounds - 1 and (n0 >> k) >= device_floor:
-            k += 1
+        if hasattr(core, "fri_cascade"):
+            while k < rounds - 1 and (n0 >> k) >= device_floor:
+                k += 1
         if k < 2:
             k = 0
         self.last_fused_rounds = k

@@ -15,7 +15,9 @@ last cycle (the claimed result).
 
 :class:`FibonacciStark` runs on the CUDA card unless the caller names
 another torch device ("cuda:1", "cpu"); ``device=None`` gives the host
-prover, with no backend.  Proofs are byte-identical across all of them
+prover, with no backend.  ``backend=`` (the JAX models' keyword)
+takes a backend in place of ``device``, e.g. a
+``stark_tpu_torch.parallel.ShardedBackend`` for a prove over a mesh.  Proofs are byte-identical across all of them
 (and to the JAX package's host prover) on the same seeded randomness.
 """
 
@@ -82,6 +84,7 @@ class FibonacciStark:
         num_steps: int,
         *,
         device="cuda",
+        backend=None,
         expansion_factor: int = 4,
         num_colinearity_tests: int = 2,
         security_level: int = 2,
@@ -94,7 +97,7 @@ class FibonacciStark:
             security_level,
             self.air.num_registers,
             self.air.trace_length,
-            backend=None if device is None else TorchBackend(device),
+            backend=backend if backend is not None else None if device is None else TorchBackend(device),
             rng=rng,
             # degree-1 constraints put the reference's max_degree far below
             # the FRI budget; target the budget so FRI colinearity holds

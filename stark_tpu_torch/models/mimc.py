@@ -31,7 +31,9 @@ claimed result).
 
 :class:`MimcStark` runs on the CUDA card unless the caller names another
 torch device ("cpu" runs the plain versions); ``device=None`` gives the
-host prover, with no backend.  Proofs are byte-identical on all of them
+host prover, with no backend.  ``backend=`` (the JAX models' keyword)
+takes a backend in place of ``device``, e.g. a
+``stark_tpu_torch.parallel.ShardedBackend`` for a prove over a mesh.  Proofs are byte-identical on all of them
 on the same seeded randomness.
 """
 
@@ -96,6 +98,7 @@ class MimcStark:
         key: FieldElement = DEFAULT_KEY,
         *,
         device="cuda",
+        backend=None,
         expansion_factor: int = 4,
         num_colinearity_tests: int = 2,
         security_level: int = 2,
@@ -108,7 +111,7 @@ class MimcStark:
             security_level,
             self.air.num_registers,
             self.air.trace_length,
-            backend=None if device is None else TorchBackend(device),
+            backend=backend if backend is not None else None if device is None else TorchBackend(device),
             rng=rng,
             # the degree-3 constraint sits below the reference-style
             # max_degree at most lengths; target the FRI budget so the

@@ -41,7 +41,9 @@ because ``MPolynomial.pow(3)`` on a 28L-term dict would be O(T^2).
 
 :class:`RescueChainStark` runs on the CUDA card unless the caller names
 another torch device ("cpu" runs the plain versions); ``device=None``
-gives the host prover, with no backend.  From 4096 hashes on its FRI
+gives the host prover, with no backend.  ``backend=`` (the JAX models' keyword)
+takes a backend in place of ``device``, e.g. a
+``stark_tpu_torch.parallel.ShardedBackend`` for a prove over a mesh.  From 4096 hashes on its FRI
 domain is 2^20 points, and the prove is the device-resident pipeline.
 """
 
@@ -241,6 +243,7 @@ class RescueChainStark:
         num_hashes: int,
         *,
         device="cuda",
+        backend=None,
         expansion_factor: int = 4,
         num_colinearity_tests: int = 2,
         security_level: int = 2,
@@ -264,7 +267,7 @@ class RescueChainStark:
             security_level,
             self.air.num_registers,
             t,
-            backend=None if device is None else TorchBackend(device),
+            backend=backend if backend is not None else None if device is None else TorchBackend(device),
             rng=rng,
             degree_target="fri",
             transition_exemptions=self.air.transition_exemptions(),

@@ -14,7 +14,9 @@ first-class, batchable object:
 
 :class:`RescueStark` runs on the CUDA card unless the caller names another
 torch device ("cpu" runs the plain versions); ``device=None`` gives the
-host prover, with no backend.  Its 512-point FRI domain lies below the
+host prover, with no backend.  ``backend=`` (the JAX models' keyword)
+takes a backend in place of ``device``, e.g. a
+``stark_tpu_torch.parallel.ShardedBackend`` for a prove over a mesh.  Its 512-point FRI domain lies below the
 backend's ``device_prover_min``, so ``prove`` is host work on every
 device; ``prove_batch`` takes its witnesses from the device.  Proofs are
 byte-identical on all of them on the same seeded randomness.
@@ -41,13 +43,14 @@ class RescueStark:
         self,
         *,
         device="cuda",
+        backend=None,
         expansion_factor: int = 4,
         num_colinearity_tests: int = 2,
         security_level: int = 2,
         rng: RandomBytes = os_random_bytes,
     ) -> None:
         self.rescue = RescuePrime()
-        self.backend = None if device is None else TorchBackend(device)
+        self.backend = backend if backend is not None else None if device is None else TorchBackend(device)
         self.stark = Stark(
             expansion_factor,
             num_colinearity_tests,

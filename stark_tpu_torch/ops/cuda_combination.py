@@ -18,6 +18,12 @@ in.  :func:`encode` refuses a structure beyond the kernel's limits with
 with :mod:`~stark_tpu_torch.ops.field_ops`, so the CPU tests hold the
 encoding too; :func:`combination` runs it for CPU tensors and launches the
 kernel for CUDA tensors (or raises).  Outputs agree limb for limb.
+
+``next_cws``, the next-row operand: a prover whose shard of the domain
+does not hold the point ``expansion`` steps on (the sharded core,
+:mod:`stark_tpu_torch.parallel.stark_sharded`) passes, per trace column,
+the next rows of its points as a codeword of their own; the kernel's
+next-row instantiation reads them there (counter ``combination_next``).
 """
 
 from __future__ import annotations
@@ -114,9 +120,11 @@ def encode(structure: Sequence, num_bq: int, expansion: int) -> Program:
 
 
 def _check(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs,
-           bq_shift_tabs) -> torch.device:
+           bq_shift_tabs, next_cws=None) -> torch.device:
     """The one device of the operands, after checking them against the program."""
     w, nc = len(trace_cws), program.n_constraints
+    if next_cws is not None and len(next_cws) != w:
+        raise ValueError(f"{len(next_cws)} next-row codewords for {w} trace codewords")
     if not 1 <= w <= MAX_TRACE or program.n_state > 2 * w:
         raise ValueError(f"{w} trace codewords for a program over {program.n_state} state columns")
     if len(group_cws) < program.n_groups or len(group_cws) > MAX_GROUPS:
@@ -128,7 +136,7 @@ def _check(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws, wei
         raise ValueError(f"{len(bq_cws)} boundary quotients and {len(bq_shift_tabs)} shift tables, "
                          f"expected {program.n_bq}")
     n = int(rand_cw.shape[-1])
-    columns = [*trace_cws, *group_cws, *tz_invs, rand_cw, *bq_cws, *tq_shift_tabs, *bq_shift_tabs]
+    columns = [*trace_cws, *group_cws, *tz_invs, rand_cw, *bq_cws, *tq_shift_tabs, *bq_shift_tabs, *(next_cws or ())]
     for t in columns + [weights]:
         if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != NUM_LIMBS or not t.is_contiguous():
             raise ValueError(f"expected contiguous (8, k) int32 tensors, got {t.dtype} {tuple(t.shape)}")
@@ -148,15 +156,21 @@ def _check(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws, wei
 
 
 def combination_plain(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs,
-                      bq_shift_tabs):
+                      bq_shift_tabs, next_cws=None):
     """K11's plain version: the program interpreted over whole codewords
-    with :mod:`~stark_tpu_torch.ops.field_ops`.  Returns (combination,
-    (k, 8, n) stack of the transition quotients)."""
+    with :mod:`~stark_tpu_torch.ops.field_ops`, the next rows from
+    ``next_cws`` where given.  Returns (combination, (k, 8, n) stack of
+    the transition quotients)."""
     w = len(trace_cws)
     vals = []
     for base, mul in program.powers:
         if base < 0:
-            v = trace_cws[mul] if mul < w else torch.roll(trace_cws[mul - w], -program.expansion, dims=-1)
+            if mul < w:
+                v = trace_cws[mul]
+            elif next_cws is not None:
+                v = next_cws[mul - w]
+            else:
+                v = torch.roll(trace_cws[mul - w], -program.expansion, dims=-1)
         else:
             v = fo.mont_mul(vals[base], vals[base])
             if mul >= 0:
@@ -189,6 +203,7 @@ class _Params(ctypes.Structure):
 
     _fields_ = [
         ("trace", ctypes.c_void_p * MAX_TRACE),
+        ("next", ctypes.c_void_p * MAX_TRACE),
         ("groups", ctypes.c_void_p * MAX_GROUPS),
         ("tz_inv", ctypes.c_void_p * MAX_CONSTRAINTS),
         ("tq_shift", ctypes.c_void_p * MAX_CONSTRAINTS),
@@ -215,10 +230,11 @@ class _Params(ctypes.Structure):
 
 
 def _params(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs,
-            bq_shift_tabs, comb, tqs) -> _Params:
+            bq_shift_tabs, comb, tqs, next_cws=None) -> _Params:
     p = _Params()
     for field, tensors in (("trace", trace_cws), ("groups", group_cws), ("tz_inv", tz_invs),
-                           ("tq_shift", tq_shift_tabs), ("bq", bq_cws), ("bq_shift", bq_shift_tabs)):
+                           ("tq_shift", tq_shift_tabs), ("bq", bq_cws), ("bq_shift", bq_shift_tabs),
+                           ("next", next_cws or ())):
         arr = getattr(p, field)
         for j, t in enumerate(tensors):
             arr[j] = t.data_ptr()
@@ -239,15 +255,16 @@ def _params(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws, we
 
 
 def combination(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs,
-                bq_shift_tabs):
+                bq_shift_tabs, next_cws=None):
     """K11: (combination (8, n), transition quotients (k, 8, n)) of the
     program over the given (8, n) Montgomery codewords and the (8, 1 + 2
-    (k + b)) Montgomery weights.  One launch on the card, the plain
-    interpreter for CPU tensors."""
+    (k + b)) Montgomery weights, the next rows read from ``next_cws``
+    where given (one (8, n) codeword a trace column).  One launch on the
+    card, the plain interpreter for CPU tensors."""
     args = (trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs, bq_shift_tabs)
-    dev = _check(program, *args)
+    dev = _check(program, *args, next_cws)
     if dev.type == "cpu":
-        return combination_plain(program, *args)
+        return combination_plain(program, *args, next_cws)
     lib = kernels.library()
     if lib.stark_combination_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError(f"CombParams is {lib.stark_combination_params_size()} bytes in the library, "
@@ -255,6 +272,7 @@ def combination(program: Program, trace_cws, group_cws, tz_invs, rand_cw, bq_cws
     n = int(rand_cw.shape[1])
     comb = torch.empty((NUM_LIMBS, n), dtype=torch.int32, device=dev)
     tqs = torch.empty((program.n_constraints, NUM_LIMBS, n), dtype=torch.int32, device=dev)
-    params = _params(program, *args, comb, tqs)
-    kernels.launch("combination", "stark_combination", ctypes.addressof(params), device=dev, size=n)
+    params = _params(program, *args, comb, tqs, next_cws)
+    kernels.launch("combination" if next_cws is None else "combination_next", "stark_combination",
+                   ctypes.addressof(params), device=dev, size=n)
     return comb, tqs

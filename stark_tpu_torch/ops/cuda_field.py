@@ -15,7 +15,9 @@ boundary quotients:
 * :func:`mont_mul`, :func:`add`, :func:`sub`, :func:`neg` (K10,
   ``stark_mont_binary``): one elementwise operation, either operand an
   (8, 1) column broadcast along the other; :func:`to_mont` and
-  :func:`from_mont` are its product by the column R^2 and by 1.
+  :func:`from_mont` are its product by the column R^2 and by 1;
+  :func:`mont_outer` (``stark_mont_outer``) is its row-by-column form,
+  the (8, r * c) table a[i] * b[j] of an (8, r) and an (8, c) table.
 
 In the JAX package these are XLA-fused functions with no Pallas form
 (``field_ops.mont_inv`` / ``mont_mul`` / ``add`` / ``sub``,
@@ -93,6 +95,28 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mont_binary(SUB, a, b)
+
+
+def mont_outer_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`mont_outer`."""
+    rows, cols = int(a.shape[1]), int(b.shape[1])
+    return fo.mont_mul(a[:, :, None].expand(NUM_LIMBS, rows, cols),
+                       b[:, None, :].expand(NUM_LIMBS, rows, cols)).reshape(NUM_LIMBS, rows * cols)
+
+
+def mont_outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K10's row-by-column form: the (8, r * c) Montgomery table
+    ``out[:, i * c + j] = a[:, i] * b[:, j]`` of an (8, r) and an (8, c)
+    table, i.e. the (8, r, c) outer product flattened.  One launch on the
+    card (counter ``mont_outer``)."""
+    rows, cols = _columns("a", a), _columns("b", b)
+    dev = _device("mont_outer", a, b)
+    if dev.type == "cpu":
+        return mont_outer_plain(a, b)
+    out = torch.empty((NUM_LIMBS, rows * cols), dtype=torch.int32, device=dev)
+    kernels.launch("mont_outer", "stark_mont_outer", kernels.ptr(a), kernels.ptr(b), kernels.ptr(out), rows, cols,
+                   device=dev, size=rows * cols)
+    return out
 
 
 def neg(a: torch.Tensor) -> torch.Tensor:

@@ -244,6 +244,43 @@ def occupancy(log_l: int, log_b: int, pass1: bool, device="cuda") -> dict:
 # -- the plan -----------------------------------------------------------------
 
 
+def power_grid(base: int, rows: int, cols: range, device) -> torch.Tensor:
+    """(8, rows, len(cols)) Montgomery table base^(r * j) over rows r and
+    the columns j in ``cols``, built on the device from the bits of j: for
+    each bit b, the row table (base^(2^b))^r multiplies the columns whose
+    index has bit b (one K10 product of the whole table on the card).
+    The W table of a transform is ``power_grid(omega, R, range(C))``; a
+    shard of the sharded transform takes its own column range."""
+    shape = (NUM_LIMBS, rows, len(cols))
+    acc = from_numpy(_mont_pack([1]), device)[:, :, None].expand(shape).contiguous()
+    idx = torch.arange(cols.start, cols.stop, device=device)
+    for bit in range(max(cols).bit_length()):
+        if not any((j >> bit) & 1 for j in cols):
+            continue  # no column index in the range has this bit
+        factor = from_numpy(_mont_pack(_power_table(pow(base, 1 << bit, P), rows)), device)[:, :, None].expand(shape)
+        mult = cuda_field.mont_mul(acc.reshape(NUM_LIMBS, -1), factor.reshape(NUM_LIMBS, -1).contiguous())
+        acc = torch.where((((idx >> bit) & 1) == 1)[None, None, :], mult.reshape(shape), acc)
+    return acc.contiguous()
+
+
+def coset_tables(offset: int, inverse: bool, R: int, C: int):
+    """The coset multipliers of a four-step transform of size n = R * C,
+    as host lists of residues.
+
+    forward (pass-1 prologue, input index j = j1*C + j2):
+        row[j1] = offset^(C*j1) in bit-reversed order, col[j2] = offset^j2
+    inverse (pass-2 epilogue, output index k = k1 + R*k2):
+        row over k2: (offset^-R)^k2 with 1/n folded in,
+        col over k1: (offset^-1)^k1
+    """
+    if not inverse:
+        row = _power_table(pow(offset, C, P), R)
+        return [row[i] for i in _bit_reverse_indices(R)], _power_table(offset % P, C)
+    inv_off = pow(offset, -1, P)
+    n_inv = pow(R * C, -1, P)
+    return [v * n_inv % P for v in _power_table(pow(inv_off, R, P), C)], _power_table(inv_off, R)
+
+
 class CudaNTT:
     """Four-step NTT/INTT of size n = R * C on one device."""
 
@@ -268,41 +305,15 @@ class CudaNTT:
         self._row_col_cache = {}
 
     def _build_w_table(self, inverse: bool) -> torch.Tensor:
-        """W[k1, j2] = omega^(+-k1*j2), (8, R, C) Montgomery, built on the
-        device from the bits of j2 (log2(C) products of the whole table,
-        K10 on the card)."""
+        """W[k1, j2] = omega^(+-k1*j2), (8, R, C) Montgomery."""
         base = pow(self.omega, -1, P) if inverse else self.omega
-        j2 = torch.arange(self.C, device=self.device)
-        shape = (NUM_LIMBS, self.R, self.C)
-        acc = from_numpy(_mont_pack([1]), self.device)[:, :, None].expand(shape).contiguous()
-        for bit in range(self.C.bit_length() - 1):
-            step = pow(base, 1 << bit, P)
-            factor = from_numpy(_mont_pack(_power_table(step, self.R)), self.device)[:, :, None].expand(shape)
-            mult = cuda_field.mont_mul(acc.reshape(NUM_LIMBS, self.n), factor.reshape(NUM_LIMBS, self.n).contiguous())
-            acc = torch.where((((j2 >> bit) & 1) == 1)[None, None, :], mult.reshape(shape), acc)
-        return acc.contiguous()
+        return power_grid(base, self.R, range(self.C), self.device)
 
     def _row_col_tables(self, offset: int, inverse: bool):
-        """Coset multipliers.
-
-        forward (pass-1 prologue, input index j = j1*C + j2):
-            row[j1] = offset^(C*j1) in bit-reversed order, col[j2] = offset^j2
-        inverse (pass-2 epilogue, output index k = k1 + R*k2):
-            row over k2: (offset^-R)^k2 with 1/n folded in,
-            col over k1: (offset^-1)^k1
-        """
+        """Coset multipliers (:func:`coset_tables`) on the device."""
         key = (offset % P, inverse)
         if key not in self._row_col_cache:
-            if not inverse:
-                row = _power_table(pow(offset, self.C, P), self.R)
-                row = [row[i] for i in _bit_reverse_indices(self.R)]
-                col = _power_table(offset % P, self.C)
-            else:
-                inv_off = pow(offset, -1, P)
-                n_inv = pow(self.n, -1, P)
-                row = _power_table(pow(inv_off, self.R, P), self.C)
-                row = [v * n_inv % P for v in row]
-                col = _power_table(inv_off, self.R)
+            row, col = coset_tables(offset, inverse, self.R, self.C)
             self._row_col_cache[key] = (
                 from_numpy(_mont_pack(row), self.device),
                 from_numpy(_mont_pack(col), self.device),

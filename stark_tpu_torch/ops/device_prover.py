@@ -97,7 +97,12 @@ class DeviceCodeword:
         self._val_cache: Dict[int, int] = {}
 
     def __len__(self) -> int:
-        return int(self.mont.shape[1])
+        # codeword length in either layout: (8, n) on one device, or a
+        # sharded (8, a, b) whose global array flattens to natural order
+        n = 1
+        for d in self.mont.shape[1:]:
+            n *= int(d)
+        return n
 
     @property
     def digits(self) -> np.ndarray:
@@ -113,7 +118,9 @@ class DeviceCodeword:
         idx = sorted({int(i) for i in indices} - self._val_cache.keys())
         if not idx:
             return [], None
-        return idx, mont_digits(self.mont, idx)
+        if isinstance(self.mont, torch.Tensor):
+            return idx, mont_digits(self.mont, idx)
+        return self.core.gather_values(self.mont, idx)  # a sharded layout: the core's gathers
 
     def absorb_values(self, idx, digits_cols: np.ndarray) -> None:
         """Fill the value cache from a fetched (4, K) digit gather."""

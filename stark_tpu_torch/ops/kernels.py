@@ -62,6 +62,7 @@ _SIGNATURES = {
     "stark_geometric_table": [_P, _P, _I, _P, _I64, _P],
     "stark_geometric_step_bits": [_I64],
     "stark_mont_binary": [_P, _P, _P, _I64, _I, _I, _I, _P],
+    "stark_mont_outer": [_P, _P, _P, _I64, _I64, _P],
     "stark_rescue_permutation": [_P, _P, _P, _I64, _I, _P],
     "stark_combination": [_P, _P],
     "stark_combination_params_size": [],
@@ -78,11 +79,15 @@ _SIGNATURES = {
 #: compress cut to 1 and 6 rounds (at 12 B4 runs ``merkle_level``)
 PROBES = ("probe_mont13_chain", "probe_mont_chain", "probe_mont16_chain/base", "probe_mont16_chain/hint16",
           "probe_mont16_chain/xor", "probe_level_stub", "probe_level_rounds/1", "probe_level_rounds/6")
+#: the kernel variants of the sharded prover's path (``stark_tpu_torch.parallel``),
+#: on no one-device prove's: K11's next-row form and K10's row-by-column form
+MESH_VARIANTS = ("combination_next", "mont_outer")
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
     "ntt_pass1": 0, "ntt_pass2": 0, "merkle_leaves": 0, "merkle_level": 0, "merkle_subtrees": 0, "merkle_top": 0,
     "fri_fold": 0, "fs_round": 0, "mont_inv": 0, "prefix_mul": 0, "geometric_table": 0, "mont_binary": 0,
     "rescue_permutation": 0, "combination": 0, "mont_digits": 0, "mont_digits_gather": 0,
+    "combination_next": 0, "mont_outer": 0,
     **{name: 0 for name in PROBES},
 }
 #: size of the launch -> kernel name -> launches since the last reset: the

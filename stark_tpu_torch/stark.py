@@ -723,6 +723,8 @@ class Stark:
         group_cws, structure = self._device_air_groups(
             core, transition_constraints
         )
+        if any(cw.ndim != 2 for cw in group_cws):
+            return None  # four-step sharded layout: the host path handles it
         idx = sorted(set(int(i) for i in indices))
         # one gather launch for every group codeword: (G * K, 4), group-major
         digits = to_numpy(mont_digits(group_cws, idx)).T
@@ -1222,9 +1224,17 @@ class Stark:
             max_degree = self.combination_degree(transition_constraints)
             with prof.region("randomizer_poly/draw"):
                 rand_bytes = draw_concat(self.rng, max_degree + 1, 17)
-            # byte->limb unpack and mod-p reduce on the device
-            with prof.region("randomizer_poly/extend"):
-                randomizer_codeword = core.extend_codeword_be17(rand_bytes)
+            if hasattr(core, "extend_codeword_be17"):
+                # byte->limb unpack and mod-p reduce on the device
+                with prof.region("randomizer_poly/extend"):
+                    randomizer_codeword = core.extend_codeword_be17(rand_bytes)
+            else:
+                from .ops.limbs import pack_be17
+
+                with prof.region("randomizer_poly/pack"):
+                    rand_limbs = pack_be17(rand_bytes)
+                with prof.region("randomizer_poly/extend"):
+                    randomizer_codeword = core.extend_codeword(rand_limbs)
             with prof.region("randomizer_poly/tree"):
                 randomizer_tree = core.merkle_tree(randomizer_codeword)
 
@@ -1232,7 +1242,7 @@ class Stark:
         # entirely on the device (device chirp interpolation + pointwise
         # eval-space division by the boundary zeroifier; exact division
         # makes the codewords bit-identical to the host polynomial path)
-        dev_interp = len(trace) > 256
+        dev_interp = len(trace) > 256 and hasattr(core, "extend_mont")
         with prof.region("trace_interpolation"):
             if dev_interp:
                 from .ops import cuda_field as cf
@@ -1380,14 +1390,15 @@ class Stark:
                     (c, duplicated_indices)
                     for c in boundary_quotient_codewords
                 ] + [(randomizer_codeword, indices)]:
-                    got, arr = cw.gather_values_async(idxs)
-                    if got:
-                        jobs.append((
-                            pad_rows(arr, 8),
-                            lambda s, c=cw, got=got: c.absorb_values(
-                                got, s[:4]
-                            ),
-                        ))
+                    if hasattr(cw, "gather_values_async"):
+                        got, arr = cw.gather_values_async(idxs)
+                        if got:
+                            jobs.append((
+                                pad_rows(arr, 8),
+                                lambda s, c=cw, got=got: c.absorb_values(
+                                    got, s[:4]
+                                ),
+                            ))
                 for tree, idxs in [
                     (t, duplicated_indices) for t in boundary_quotient_trees
                 ] + [(randomizer_tree, indices)]:

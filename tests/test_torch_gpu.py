@@ -248,8 +248,9 @@ def test_fibonacci_proof_on_the_card_equals_host(cuda):
     assert model.stark.fri.last_fused_rounds == 3
     # every tree (8192 leaves at most) is narrower than SUBTREE_WIDTH, so
     # the level kernel's levels go to the subtrees kernel; the Rescue
-    # permutation and the timing probes are not on a prove's path
-    off_path = ("rescue_permutation",) + kernels.PROBES
+    # permutation, the timing probes and the sharded path's kernel variants
+    # are not on a one-device prove's path
+    off_path = ("rescue_permutation",) + kernels.PROBES + kernels.MESH_VARIANTS
     assert kernels.LAUNCHES["merkle_level"] == 0 and all(kernels.LAUNCHES[k] == 0 for k in off_path), kernels.LAUNCHES
     assert all(v > 0 for k, v in kernels.LAUNCHES.items() if k not in ("merkle_level",) + off_path), \
         kernels.LAUNCHES
@@ -773,3 +774,93 @@ def test_proves_on_the_card_call_no_plain_arithmetic(cuda, model):
     assert got == want
     assert kernels.LAUNCHES["combination"] == 1
     assert kernels.LAUNCHES["mont_digits"] > 0
+
+
+# -- the sharded path's kernel variants, a sharded prove and the service ----------
+
+
+@pytest.mark.parametrize("logn", [13, 17, 20])
+@pytest.mark.parametrize("name", ["fib", "chain_shapes"])
+def test_combination_next_rows_match_plain(cuda, name, logn):
+    """K11's next-row form (the sharded core's) against its plain version,
+    and against the one-device form given the rolled planes."""
+    from stark_tpu_torch.ops import cuda_combination as cc
+
+    structure = FIB_STRUCTURE if name == "fib" else CHAIN_SHAPES
+    n, k, groups = 1 << logn, len(structure), 1 + max(gi for c in structure for _, gi in c)
+    cws = iter(range(1000))
+    col = lambda: _mont(n, logn * 2000 + next(cws), cuda)  # noqa: E731
+    trace = [col(), col()]
+    args = (trace, [col() for _ in range(groups)], [col()] * k, col(), [col(), col()],
+            _mont(1 + 2 * (k + 2), logn, cuda), [col() for _ in range(k)], [col(), col()])
+    program = cc.encode(structure, 2, 4)
+    nexts = [col(), col()]
+    comb, tqs = _launched("combination_next", lambda: cc.combination(program, *args, next_cws=nexts))
+    want_comb, want_tqs = cc.combination_plain(program, *args, nexts)
+    assert torch.equal(comb, want_comb) and torch.equal(tqs, want_tqs)
+    rolled = [torch.roll(t, -4, dims=1).contiguous() for t in trace]
+    assert torch.equal(cc.combination(program, *args, next_cws=rolled)[0], cc.combination(program, *args)[0])
+
+
+@pytest.mark.parametrize("rows, cols", [(1, 1), (3, 5), (1000, 7), (8, 128), (1024, 128), (1 << 14, 64)])
+def test_mont_outer_matches_plain(cuda, rows, cols):
+    from stark_tpu_torch.ops import cuda_field
+
+    a = _mont(max(rows, 3), rows, cuda)[:, :rows].contiguous()
+    b = _mont(max(cols, 3), cols + 1, cuda)[:, :cols].contiguous()
+    got = _launched("mont_outer", lambda: cuda_field.mont_outer(a, b))
+    assert torch.equal(got, cuda_field.mont_outer_plain(a, b))
+
+
+def test_sharded_fib_1000_on_an_8_shard_mesh_equals_the_one_device_proof(cuda):
+    """fib-1000 (8192 points) over 8 shards on one card: the proof the
+    one-device prover's bytes, no plain arithmetic, every per-shard step
+    a kernel (K11's next-row form once a shard)."""
+    from stark_tpu_torch.models.fibonacci import FibonacciStark
+    from stark_tpu_torch.ops import guard, kernels
+    from stark_tpu_torch.parallel import ShardedBackend, make_mesh
+
+    mesh = make_mesh(8, [cuda])
+    assert len(mesh) == 8 and len(set(mesh)) == 1 and mesh[0].index is not None
+    a, b = FieldElement(3), FieldElement(7)
+    want = FibonacciStark(1000, device=cuda, rng=DeterministicRandom(11)).prove(a, b)
+    model = FibonacciStark(1000, backend=ShardedBackend(mesh), rng=DeterministicRandom(11))
+    assert model.stark._use_device_pipeline()
+    kernels.reset_launch_counts()
+    with guard.count_plain_calls() as plain:
+        got = model.prove(a, b)
+    assert sum(plain.values()) == 0, dict(plain)
+    assert got == want
+    assert kernels.LAUNCHES["combination_next"] == 8 and kernels.LAUNCHES["combination"] == 0
+    # blocks of 1024 leaves are hashed on the host from their digits
+    # (mont_digits a block), which then serve the openings: no gather
+    for name in ("ntt_pass1", "ntt_pass2", "fri_fold", "mont_outer", "mont_inv", "mont_digits"):
+        assert kernels.LAUNCHES[name] > 0, name
+    assert model.verify(a, b, got[0], got[1])
+
+
+def test_service_round_trip_on_the_card(cuda):
+    import json
+    import threading
+    import urllib.request
+
+    from stark_tpu_torch.serve import ProverService, make_server
+
+    server = make_server(ProverService(device="cuda"), "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, data=json.dumps(payload).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            assert json.loads(r.read())["backend"] == "cuda"
+        fib = {"model": "fibonacci", "steps": 1000, "a": "1", "b": "1"}
+        proved = post("/prove", fib)
+        assert post("/verify", dict(fib, proof=proved["proof"], output=proved["output"]))["valid"] is True
+    finally:
+        server.shutdown()
+        server.server_close()

@@ -196,6 +196,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "names = [m.name for m in pkgutil.walk_packages(stark_tpu_torch.__path__, 'stark_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "assert len(names) >= 30, names\n"
+        "assert {'stark_tpu_torch.serve', 'stark_tpu_torch.parallel.stark_sharded'} <= set(names), names\n"
         "bad = [m for m in sys.modules if m in ('jax', 'stark_tpu') or m.startswith(('jax.', 'stark_tpu.'))]\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -224,7 +225,9 @@ def test_no_import_of_jax_or_the_jax_package_anywhere_in_the_port():
                       "mimc.py", "rescue_chain.py", "cli.py"}
     probe_modules = {"cuda_probes.py", "lazy_limb_experiment.py", "quick_timing.py", "mont_mul_experiments.py",
                      "merkle_roofline.py"}
-    assert rescue_modules | probe_modules <= {path.name for path in files}
+    service_and_mesh_modules = {"serve.py", "mesh.py", "ntt_sharded.py", "fold_sharded.py", "merkle_sharded.py",
+                                "stark_sharded.py"}
+    assert rescue_modules | probe_modules | service_and_mesh_modules <= {path.name for path in files}
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
         for path in files
