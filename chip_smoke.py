@@ -158,7 +158,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    shards (its 1024-point domain gives a shard of 8 shards 4 columns,
    below the NTT passes' cluster of 8) with ``device_prover_min`` 1024,
    byte-identical to the host prover, its combination the next-row form;
-8. a JSON line of the kernels, K11 (``combination``), ``mont_digits`` and
+8. the mesh over two processes (``stark_tpu_torch.benches.multiprocess_mesh``,
+   the multi-controller mode over ``torch.distributed``): 2 ranks of
+   ``MESH_SHARDS`` / 2 shards each, both on ``cuda:0`` over gloo (NCCL
+   refuses two ranks on one card), every crossing staged through host
+   buffers; each rank checks the spanning mesh's transform at 2^20 (and its
+   coset transform) against ``CudaNTT`` limb for limb, the round trip, a
+   tree of 2^16 leaves against the one-device tree, proves and verifies
+   its own Rescue statement, then proves FibonacciStark(65536) over the
+   spanning mesh with phase 4's seed and statement, cold and warm: the
+   proof byte-identical to phase 4's (its digest passed to the workers)
+   and to the other rank's, accepted by the host verifier, committed
+   through device subtrees spanning the ranks (``ShardedMerkleTree``), 0
+   ``field_ops`` calls on CUDA tensors; a line with each rank's launches,
+   exchanges (calls, bytes, ``remote_bytes``, ``staged_bytes``), cold and
+   warm seconds and peak device MiB beside phase 7's, and the phase's
+   seconds; a worker that fails or outlives ``MP_TIMEOUT_S`` is killed
+   and the phase raises;
+9. a JSON line of the kernels, K11 (``combination``), ``mont_digits`` and
    ``mont_digits_gather`` among them, and the variants of the sharded path,
    K11's next-row form (``combination_next``) and K10's row-by-column
    form (``mont_outer``), checked and timed in phase 2 at a shard's shape
@@ -167,7 +184,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    ``mesh_launches``: the mesh prove's; ``prove_ms`` and
    ``prove_bound_ms``: the fib-2^16 prove's, the variants' the mesh
    prove's (their launches at each size times their time and bound there);
-   ``chain_launches`` and ``chain_prove_ms``: the chain prove's; the
+   ``chain_launches`` and ``chain_prove_ms``: the chain prove's;
+   ``multiprocess_launches``: phase 8's cold prove's, both ranks'; the
    probes' prove times null;
    ``library_ms`` the stub's library call, else null;
    ``function_bound_ms`` B2's bound for the three chains of the field
@@ -316,6 +334,10 @@ MESH_PATH = ("ntt_pass1", "ntt_pass2", "mont_binary", "mont_inv", "geometric_tab
 # largest last
 MESH_OUTER_SHAPES = ((1, 1), (3, 5), (1000, 7), (8, 128), (64, 128), (512, 128), (1024, 128))
 LATENCY_BOUND = ("merkle_top", "fs_round", "mont_digits_gather")
+# the mesh over processes (phase 8): its ranks, all on cuda:0, and the
+# seconds after which the launcher kills them
+MP_RANKS = 2
+MP_TIMEOUT_S = 600
 # the chain probes that compute the field product a * t^10 * 2^-1280: B2
 # (``fe_mul``) and B3's base and hint16 (the TPU's 16-bit CIOS)
 PROBE_FIELD_PRODUCT = ("probe_mont_chain", "probe_mont16_chain/base", "probe_mont16_chain/hint16")
@@ -1123,6 +1145,58 @@ def mesh_phase(torch, dev, fib_steps: int, fib_claim, fib_proof: bytes, one_devi
     out["chain"] = {"hashes": 4, "shards": len(chain_mesh), "fri_domain": chain.stark.fri_domain_length,
                     "identical_to_host": True, "proof_bytes": len(chain_out[1]), "launches": chain_launches}
     return out
+
+
+def multiprocess_phase(fib_steps: int, fib_claim, fib_proof: bytes, mesh_fib: dict) -> dict:
+    """Phase 8: the multi-controller launcher on the card, ``MP_RANKS``
+    ranks on ``cuda:0`` over gloo; the workers prove phase 4's statement
+    (``fib_claim``: (a, b, result)) and raise unless their proof's digest
+    is phase 4's (``fib_proof``); ``mesh_fib``: phase 7's prove, printed
+    beside.  Every failure raises."""
+    from stark_tpu_torch.benches import multiprocess_mesh
+
+    a, b, result = fib_claim
+    digest = hashlib.sha256(fib_proof).hexdigest()
+    ranks = multiprocess_mesh.run(
+        ["--device", "cuda", "--backend", "gloo", "--ranks", str(MP_RANKS),
+         "--shards-per-rank", str(MESH_SHARDS // MP_RANKS), "--log-n", "20", "--steps", str(fib_steps),
+         "--inputs", str(a.value), str(b.value), "--seed", str(SEED), "--device-prover-min", str(1 << 12),
+         "--warm", "1", "--expect-digest", digest, "--timeout", str(MP_TIMEOUT_S)])
+    if [r["rank"] for r in ranks] != list(range(MP_RANKS)):
+        raise AssertionError(f"the launcher returned ranks {[r['rank'] for r in ranks]}")
+    per_rank = []
+    for r in ranks:
+        (fib,), ntt = r["fib"], r["ntt"]
+        if not (ntt["n"] == 1 << 20 and ntt["identical_to_one_device"] and ntt["coset_identical_to_one_device"]
+                and ntt["round_trip"] and r["tree"]["identical_to_one_device"]):
+            raise AssertionError(f"rank {r['rank']}: the spanning transform or tree: {ntt}, {r['tree']}")
+        if (fib["sha256"], fib["result"], fib["fri_domain"]) != (digest, result.value, 1 << 20):
+            raise AssertionError(f"rank {r['rank']}'s fib proof is not phase 4's")
+        if not (fib["verified"] and fib["ranks_agree"] and fib["plain_field_ops_on_cuda"] == 0 and r["staged"]
+                and r["rescue"]["verified"] and fib["commitments"].get("ShardedMerkleTree", 0) > 0):
+            raise AssertionError(f"rank {r['rank']}: {fib}")
+        launches = fib["launches"]
+        missing = [k for k in MESH_PATH if k != "mont_digits_gather" and launches.get(k, 0) <= 0]
+        if missing or launches.get("combination") or launches.get("fs_round") or \
+                launches.get("combination_next") != MESH_SHARDS // MP_RANKS:
+            raise AssertionError(f"rank {r['rank']} launched {launches} (never {missing})")
+        ex = fib["exchanges"]
+        if ex["remote_bytes"] <= 0 or ex["staged_bytes"] <= 0:
+            raise AssertionError(f"rank {r['rank']}: nothing crossed ranks: {ex}")
+        per_rank.append({"rank": r["rank"], "device": r["device"], "card": r["card"], "launches": launches,
+                         "exchanges": ex, "commitments": fib["commitments"], "prove_seconds": fib["prove_seconds"],
+                         "warm_prove_seconds": fib["warm_prove_seconds"], "peak_device_mib": fib["peak_device_mib"],
+                         "verify_seconds": fib["verify_seconds"], "ntt_forward_seconds_2e20": ntt["forward_seconds"],
+                         "rescue_proof_bytes": r["rescue"]["proof_bytes"]})
+    gathers = sum(r["launches"].get("mont_digits_gather", 0) for r in per_rank)
+    if gathers <= 0:
+        raise AssertionError("no rank launched the opening gather")
+    staged, remote = (sum(r["exchanges"][k] for r in per_rank) for k in ("staged_bytes", "remote_bytes"))
+    if staged != 2 * remote:
+        raise AssertionError(f"staged {staged} bytes for {remote} that crossed ranks")
+    return {"ranks": MP_RANKS, "shards": MESH_SHARDS, "backend": "gloo", "identical_to_one_device": True,
+            "proof_bytes": ranks[0]["fib"][0]["proof_bytes"], "per_rank": per_rank,
+            "mesh_one_process": {k: mesh_fib[k] for k in ("prove_seconds", "warm_prove_seconds", "peak_device_mib")}}
 
 
 def main() -> int:
@@ -2326,11 +2400,20 @@ def main() -> int:
     prove_ms.update(mesh_ms)
     prove_bound_ms.update(mesh_bound_ms)
 
+    # -- 8. the mesh over two processes ------------------------------------------
+    t0 = time.perf_counter()
+    multiprocess = multiprocess_phase(steps, fib_claim, fib_proof, mesh["fib"])
+    say("multiprocess", **multiprocess, seconds=time.perf_counter() - t0)
+    mp_launches = {}
+    for r in multiprocess["per_rank"]:
+        for name, count in r["launches"].items():
+            mp_launches[name] = mp_launches.get(name, 0) + count
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "stark_tpu") or m.startswith(("jax.", "stark_tpu.")))
     if leaked:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {leaked[:5]}")
 
-    # -- 8. result ------------------------------------------------------------
+    # -- 9. result ------------------------------------------------------------
     sources = {
         "ntt_pass1": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:234"),
         "ntt_pass2": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:311"),
@@ -2368,7 +2451,7 @@ def main() -> int:
          "function_bound_ms": function_bound.get(name),
          "launch_floor_ms": floor_ms if name in LATENCY_BOUND else None,
          "prove_ms": on_prove(name, prove_ms[name]), "prove_bound_ms": on_prove(name, prove_bound_ms[name]),
-         "mesh_launches": mesh_launches.get(name),
+         "mesh_launches": mesh_launches.get(name), "multiprocess_launches": mp_launches.get(name, 0),
          "chain_launches": chain_launches[name], "chain_prove_ms": on_prove(name, chain_ms[name]),
          "chain_prove_bound_ms": on_prove(name, chain_bound_ms[name])}
         for name, (src, rep) in sources.items()

@@ -1,11 +1,13 @@
-"""The JAX package's TPU timing probes (``benches/``) on the card.
+"""The JAX package's TPU timing probes (``benches/``) on the card, and its
+multi-process mesh run.
 
     python -m stark_tpu_torch.benches.lazy_limb_experiment      # B1: 13-bit lazy limbs
     python -m stark_tpu_torch.benches.quick_timing              # B2: the chained production product, the NTT
     python -m stark_tpu_torch.benches.mont_mul_experiments      # B3: the product's variants
     python -m stark_tpu_torch.benches.merkle_roofline [--out F] # B4: the Merkle roofline
+    python -m stark_tpu_torch.benches.multiprocess_mesh         # one mesh over 2 processes (its own docstring)
 
-Each module's ``check(device)`` runs its kernels (:mod:`stark_tpu_torch.ops.cuda_probes`;
+Each probe module's ``check(device)`` runs its kernels (:mod:`stark_tpu_torch.ops.cuda_probes`;
 on CPU tensors their plain versions) at the probe's own seeds and shapes
 and holds them bit for bit against their plain versions and Python ints;
 ``run(device="cuda")`` checks at the full shape, then times the kernels

@@ -255,9 +255,14 @@ class DeviceMerkleTree:
         self._sib_cache: Dict[tuple, bytes] = {}
         self._root_bytes = root
 
+    @property
+    def tail_pending(self) -> bool:
+        """Whether the host top levels still wait for the tail level."""
+        return self._host_levels is None
+
     def tail_async(self):
         """The (8, TAIL_WIDTH) tail level if it still needs fetching."""
-        return self._tail_arr if self._host_levels is None else None
+        return self._tail_arr if self.tail_pending else None
 
     def absorb_tail(self, arr: np.ndarray) -> None:
         """Finish the host top levels from an externally fetched tail."""
@@ -292,21 +297,32 @@ class DeviceMerkleTree:
                 self._root_bytes = _digest_bytes(to_numpy(self._root_words))
         return self._root_bytes
 
+    def missing_siblings(self, indices: Sequence[int]) -> List[tuple]:
+        """The (level, index) keys of the device-level auth-path siblings of
+        ``indices`` that are not cached yet, level by level, in order."""
+        keys: List[tuple] = []
+        for lvl in range(len(self._device_levels)):
+            cached = {s for (l, s) in self._sib_cache if l == lvl}
+            keys.extend((lvl, s) for s in sorted({(int(i) >> lvl) ^ 1 for i in indices} - cached))
+        return keys
+
+    def gather_siblings(self, keys: Sequence[tuple]) -> torch.Tensor:
+        """The (8, len(keys)) device digests of ``keys`` (as
+        :meth:`missing_siblings` orders them): one index a level."""
+        by_level: Dict[int, List[int]] = {}
+        for lvl, sib in keys:
+            by_level.setdefault(lvl, []).append(sib)
+        return torch.cat([self._device_levels[lvl][:, torch.tensor(sibs, device=self._device_levels[lvl].device)]
+                          for lvl, sibs in by_level.items()], dim=1)
+
     def gather_siblings_async(self, indices: Sequence[int]):
         """Gather (without fetching) every device-level auth-path sibling of
         ``indices`` that is not cached yet: (keys, (8, len(keys)) tensor),
         or ([], None) when nothing is missing."""
-        keys: List[tuple] = []
-        cols = []
-        for lvl, level in enumerate(self._device_levels):
-            sibs = sorted({(int(i) >> lvl) ^ 1 for i in indices} - {s for (l, s) in self._sib_cache if l == lvl})
-            if not sibs:
-                continue
-            keys.extend((lvl, s) for s in sibs)
-            cols.append(level[:, torch.tensor(sibs, device=level.device)])
+        keys = self.missing_siblings(indices)
         if not keys:
             return [], None
-        return keys, torch.cat(cols, dim=1)
+        return keys, self.gather_siblings(keys)
 
     def absorb_siblings(self, keys, flat: np.ndarray) -> None:
         """Fill the sibling cache from a fetched gather (columns match keys)."""
@@ -336,7 +352,7 @@ class DeviceMerkleTree:
             if lvl < len(self._device_levels):
                 key = (lvl, sib)
                 if key not in self._sib_cache:
-                    self._sib_cache[key] = _digest_bytes(to_numpy(self._device_levels[lvl][:, sib].contiguous()))
+                    self.absorb_siblings([key], to_numpy(self.gather_siblings([key])))
                 path.append(self._sib_cache[key])
             else:
                 host = self._finish_top()[lvl - self._log_tail_gap]

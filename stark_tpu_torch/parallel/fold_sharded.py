@@ -30,7 +30,7 @@ from ..ops import cuda_field as cf
 from ..ops.cuda_fold import fri_fold
 from ..ops.device_prover import geometric_table
 from ..ops.limbs import mont_tensor
-from .mesh import Mesh, ShardedArray, normalize
+from .mesh import Mesh, ShardedArray, normalize, owned
 
 
 def power_table(base: int, start: int, n: int, device) -> torch.Tensor:
@@ -48,7 +48,8 @@ def separable_table(row_base: int, rows: int, col_base: int, col_start: int, col
 
 
 class ShardedFold:
-    """Shard-local FRI folds over a mesh (see the module docstring)."""
+    """Shard-local FRI folds over a mesh (see the module docstring); the
+    tables are built for this process's shards only."""
 
     def __init__(self, mesh: Mesh, r: int) -> None:
         self.mesh = normalize(mesh)
@@ -77,10 +78,11 @@ class ShardedFold:
         _, c, rl = codeword.shards[0].shape
         if c < 2 or c % 2:
             raise ValueError(f"a shard of {c} rows does not fold")
-        alphas = {dev: mont_tensor([alpha % P], dev) for dev in set(self.mesh)}  # one upload a device
+        mine = owned(self.mesh)
+        alphas = {dev: mont_tensor([alpha % P], dev) for dev in {dev for _, dev in mine}}  # one upload a device
         out = []
-        for s, (t, dev) in enumerate(zip(codeword.shards, self.mesh)):
+        for (s, dev), t in zip(mine, codeword.shards):
             inv = self.inv_table(s, offset, omega, c // 2)
             folded = fri_fold(t.reshape(NUM_LIMBS, -1).contiguous(), alphas[dev], inv)
             out.append(folded.reshape(NUM_LIMBS, c // 2, rl))
-        return ShardedArray(out)
+        return ShardedArray(out, self.mesh)

@@ -17,7 +17,12 @@ whole codeword, and so are its auth paths.
   :class:`~stark_tpu_torch.ops.device_merkle.DeviceMerkleTree` a block on
   its shard's device (K4 from the Montgomery limbs, the subtrees kernel,
   the top kernel), the top levels hashed on the host from the D block
-  roots, openings gathered from the blocks' device levels.
+  roots, openings gathered from the blocks' device levels.  On a mesh
+  that spans ranks a rank holds device trees for its own blocks and a
+  :class:`RemoteBlock` for each other one; only the D roots, the opened
+  paths' siblings and the tail levels cross ranks, each in one all-gather
+  (:func:`~stark_tpu_torch.parallel.mesh.allgather_shards`), so every
+  rank opens the same paths.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ import torch
 
 from ..hashing import merkle_level
 from ..merkle import MerkleTree
-from ..ops.device_merkle import DeviceMerkleTree, _digest_bytes
-from ..ops.limbs import to_numpy
+from ..ops.device_merkle import TAIL_WIDTH, DeviceMerkleTree, _digest_bytes
+from ..ops.limbs import from_numpy, to_numpy
+from .mesh import Mesh, allgather_shards, owned
 
 
 def subtree_levels(block_digits: np.ndarray) -> List[bytes]:
@@ -71,33 +77,70 @@ def tree_from_blocks(blocks: Sequence[np.ndarray]) -> MerkleTree:
     return tree_from_block_levels([subtree_levels(b) for b in blocks])
 
 
+class RemoteBlock(DeviceMerkleTree):
+    """A block whose device tree lives on another rank: the host side of a
+    :class:`DeviceMerkleTree` (the siblings, tail level and root that
+    crossed, with the same bookkeeping of what is missing) and no device
+    level.  Its owner's rank supplies what it lacks."""
+
+    def __init__(self, n: int) -> None:
+        if n < 2 * TAIL_WIDTH or n & (n - 1):
+            raise ValueError(f"device tree needs a power-of-two block >= {2 * TAIL_WIDTH}")
+        depth = n.bit_length() - TAIL_WIDTH.bit_length()  # the levels n .. 2 * TAIL_WIDTH
+        self._init_from_arrays(n, [None] * (depth + 1), None)
+        self._root_words = None
+
+    def gather_siblings(self, keys):
+        raise RuntimeError("a remote block's levels live on another rank: gather through its ShardedMerkleTree")
+
+    def _finish_top(self) -> List[bytes]:
+        if self._host_levels is None:
+            raise RuntimeError("a remote block's tail level has not crossed: fetch it through its ShardedMerkleTree")
+        return self._host_levels
+
+
 class ShardedMerkleTree:
     """A Merkle tree over D natural-order blocks, each a
-    :class:`DeviceMerkleTree` on its shard's device, the top log2(D) levels
-    on the host.  Same surface as ``DeviceMerkleTree`` (``root``,
-    ``open``, ``num_leaves``, ``prefetch`` and the batched-fetch hooks);
-    gathers from the blocks are joined on ``device``."""
+    :class:`DeviceMerkleTree` on its shard's device (a :class:`RemoteBlock`
+    where another rank owns it), the top log2(D) levels on the host.  Same
+    surface as ``DeviceMerkleTree`` (``root``, ``open``, ``num_leaves``,
+    ``prefetch`` and the batched-fetch hooks); gathers from the blocks are
+    joined on ``device``.  On a spanning ``mesh`` the root, the hooks and
+    ``open`` are collectives: every rank calls them in the same order with
+    the same indices, and gets the same bytes."""
 
-    def __init__(self, blocks: Sequence[DeviceMerkleTree], device) -> None:
+    def __init__(self, blocks: Sequence[DeviceMerkleTree], device, mesh: Mesh) -> None:
         d = len(blocks)
         if d & (d - 1):
             raise ValueError("block count must be a power of two")
         self.blocks = list(blocks)
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._own = [s for s, _ in owned(self.mesh)]
         self.block_leaves = blocks[0].num_leaves
         self.num_leaves = d * self.block_leaves
         self._log_d = d.bit_length() - 1
         self._top = None
         self._tail_blocks: List[int] = []
 
+    def _join(self, parts, cols: Sequence[int]) -> torch.Tensor:
+        """Own blocks' (8, k) columns joined on ``device``, then every
+        block's on every rank (``cols[b]``: block b's columns)."""
+        local = (torch.cat([p.to(self.device) for p in parts], dim=1) if parts
+                 else torch.zeros((8, 0), dtype=torch.int32, device=self.device))
+        return allgather_shards(self.mesh, local, cols)
+
     def _finish_top(self) -> List[bytes]:
         if self._top is None:
-            pending = [(b, w) for b, w in ((b, t.root_words_async()) for b, t in enumerate(self.blocks))
-                       if w is not None]
-            if pending:
-                flat = to_numpy(torch.stack([w.to(self.device) for _, w in pending]))
-                for row, (b, _) in enumerate(pending):
-                    self.blocks[b].set_root(_digest_bytes(flat[row]))
+            words = []
+            for b in self._own:
+                w = self.blocks[b].root_words_async()
+                if w is None:  # the root is known: its words as they hash
+                    w = from_numpy(np.frombuffer(self.blocks[b].root, dtype="<u4"), self.device)
+                words.append(w.reshape(8, 1))
+            flat = to_numpy(self._join(words, [1] * len(self.blocks)))
+            for b, t in enumerate(self.blocks):
+                t.set_root(_digest_bytes(flat[:, b]))
             self._top = _top_levels(b"".join(t.root for t in self.blocks))
         return self._top
 
@@ -115,15 +158,16 @@ class ShardedMerkleTree:
     def gather_siblings_async(self, indices: Sequence[int]):
         """Every block's missing device-level siblings of ``indices``:
         (keys, (8, len(keys)) tensor on ``device``) or ([], None)."""
-        keys, arrs = [], []
+        keys, parts, cols = [], [], [0] * len(self.blocks)
         for b, local in self._by_block(indices).items():
-            got, arr = self.blocks[b].gather_siblings_async(local)
-            if got:
-                keys += [(b, key) for key in got]
-                arrs.append(arr.to(self.device))
+            got = self.blocks[b].missing_siblings(local)
+            keys += [(b, key) for key in got]
+            cols[b] = len(got)
+            if got and b in self._own:
+                parts.append(self.blocks[b].gather_siblings(got))
         if not keys:
             return [], None
-        return keys, torch.cat(arrs, dim=1)
+        return keys, self._join(parts, cols)
 
     def absorb_siblings(self, keys, flat: np.ndarray) -> None:
         per = {}
@@ -136,12 +180,12 @@ class ShardedMerkleTree:
 
     def tail_async(self):
         """The blocks' tail levels still to fetch, joined on ``device``."""
-        tails = [(b, t.tail_async()) for b, t in enumerate(self.blocks)]
-        tails = [(b, a) for b, a in tails if a is not None]
-        if not tails:
+        need = [b for b, t in enumerate(self.blocks) if t.tail_pending]
+        if not need:
             return None
-        self._tail_blocks = [b for b, _ in tails]
-        return torch.cat([a.to(self.device) for _, a in tails], dim=1)
+        self._tail_blocks = need
+        return self._join([self.blocks[b].tail_async() for b in need if b in self._own],
+                          [TAIL_WIDTH if b in need else 0 for b in range(len(self.blocks))])
 
     def absorb_tail(self, arr: np.ndarray) -> None:
         w = arr.shape[1] // len(self._tail_blocks)
@@ -168,6 +212,7 @@ class ShardedMerkleTree:
             raise IndexError("leaf index out of range")
         b, local = divmod(index, self.block_leaves)
         top = self._finish_top()
+        self.prefetch([index])  # nothing moves once the batched fetches have run
         path = self.blocks[b].open(local)
         for lvl in range(self._log_d):
             sib = (b >> lvl) ^ 1

@@ -22,6 +22,10 @@ size-C NTTs along the rows.  Over a mesh of D shards
 * step (3) is one launch of the row pass K3 (``cuda_ntt.ntt_pass2``) a
   shard, which stores its rows transposed.
 
+On a mesh that spans processes each process runs the passes of its own
+shards, builds the W and coset tables of those shards only, and the
+exchange is one all-to-all between the ranks.
+
 **The four-step layout.**  A shard of the output is ``(8, C, R/D)``
 indexed ``[k2, k1_local]``: the JAX module keeps ``(8, R/D, C)`` indexed
 ``[k1_local, k2]``; this is its transpose, exactly what K3 stores.  The
@@ -54,7 +58,7 @@ from ..params import NUM_LIMBS, P
 from ..ops.cuda_ntt import (CLUSTER_BLOCKS, MAX_PASS_LEN, _pack_stage_twiddles, coset_tables, ntt_pass1, ntt_pass2,
                             power_grid)
 from ..ops.limbs import from_numpy, mont_tensor
-from .mesh import Mesh, ShardedArray, exchange, normalize, shard_columns
+from .mesh import Mesh, ShardedArray, exchange, normalize, owned, shard_columns
 
 
 def _split(n: int, d: int) -> Tuple[int, int]:
@@ -82,7 +86,7 @@ class ShardedNTT:
         self.R, self.C = _split(n, self.d)
         self.omega = FieldElement.primitive_nth_root(n).value
         rl, cl = self.R // self.d, self.C // self.d
-        if any(dev.type == "cuda" for dev in self.mesh) and (
+        if any(dev.type == "cuda" for _, dev in owned(self.mesh)) and (
                 min(rl, cl) < CLUSTER_BLOCKS or max(self.R, self.C) > MAX_PASS_LEN):
             raise ValueError(
                 f"a {n}-point transform over {self.d} shards gives shards of {cl} columns and {rl} rows; the "
@@ -138,26 +142,27 @@ class ShardedNTT:
     # -- transforms ---------------------------------------------------------
 
     def _check(self, x: ShardedArray, shape) -> None:
-        if len(x.shards) != self.d:
-            raise ValueError(f"{len(x.shards)} shards on a mesh of {self.d}")
-        for t, dev in zip(x.shards, self.mesh):
+        mine = owned(self.mesh)
+        if len(x.shards) != len(mine):
+            raise ValueError(f"{len(x.shards)} shards, this process drives {len(mine)} of a mesh of {self.d}")
+        for t, (_, dev) in zip(x.shards, mine):
             if tuple(t.shape) != shape or t.device != dev:
-                raise ValueError(f"expected {shape} shards on {list(map(str, self.mesh))}, "
+                raise ValueError(f"expected {shape} shards on {[str(d) for _, d in mine]}, "
                                  f"got {tuple(t.shape)} on {t.device}")
 
     def _transform(self, x: ShardedArray, inverse: bool, offset: int) -> ShardedArray:
         cl = self.C // self.d
         self._check(x, (NUM_LIMBS, self.R, cl))
         ys = []
-        for s, (t, dev) in enumerate(zip(x.shards, self.mesh)):
+        for (s, dev), t in zip(owned(self.mesh), x.shards):
             row, col = self._coset(s, offset, False) if offset != 1 else (None, None)
             ys.append(ntt_pass1(t.contiguous(), self._twiddles(self.R, inverse, dev), self._w(inverse, s), row, col))
-        y = exchange(ShardedArray(ys))  # (8, R/D, C): the shard's rows k1, every column
+        y = exchange(ShardedArray(ys, self.mesh))  # (8, R/D, C): the shard's rows k1, every column
         out = []
-        for s, (t, dev) in enumerate(zip(y.shards, self.mesh)):
+        for (s, dev), t in zip(owned(self.mesh), y.shards):
             row, col = self._coset(s, 1, True) if inverse else (None, None)
             out.append(ntt_pass2(t, self._twiddles(self.C, inverse, dev), row, col))
-        return ShardedArray(out)
+        return ShardedArray(out, self.mesh)
 
     def forward(self, x: ShardedArray, offset: int = 1) -> ShardedArray:
         """Column-sharded (8, R, C/D) Montgomery coefficients (the natural
@@ -177,13 +182,13 @@ class ShardedNTT:
         rl = self.R // self.d
         self._check(x, (NUM_LIMBS, self.C, rl))
         ys = [ntt_pass1(t.contiguous(), self._twiddles(self.C, True, dev), self._w4(s))
-              for s, (t, dev) in enumerate(zip(x.shards, self.mesh))]
-        y = exchange(ShardedArray(ys))  # (8, C/D, R): the shard's columns j2, every k1
+              for (s, dev), t in zip(owned(self.mesh), x.shards)]
+        y = exchange(ShardedArray(ys, self.mesh))  # (8, C/D, R): the shard's columns j2, every k1
         out = []
-        for s, (t, dev) in enumerate(zip(y.shards, self.mesh)):
+        for (s, dev), t in zip(owned(self.mesh), y.shards):
             row, col = self._coset(s, offset % P, True, swap=True)
             out.append(ntt_pass2(t, self._twiddles(self.R, True, dev), row, col))
-        return ShardedArray(out)
+        return ShardedArray(out, self.mesh)
 
     # -- layout helpers (tests, the prover's uploads) ------------------------
 
@@ -192,13 +197,17 @@ class ShardedNTT:
         return vec.reshape(NUM_LIMBS, self.R, self.C)
 
     def from_output_matrix(self, out: ShardedArray) -> torch.Tensor:
-        """Four-step output -> (8, n) natural order on the first shard's
-        device (the global (8, C, R) array flattens to it)."""
+        """Four-step output -> (8, n) natural order on the mesh's home
+        device (the global (8, C, R) array flattens to it; on a spanning
+        mesh every rank gets it)."""
         return out.gather().reshape(NUM_LIMBS, self.n)
 
     def shard_input(self, mat) -> ShardedArray:
         """An (8, R, C) matrix (int32 tensor, or the JAX package's uint32
-        numpy layout) -> its column shards on the mesh."""
+        numpy layout) -> its column shards on the mesh; on a spanning mesh
+        each rank takes its own shards' columns from its copy of the whole
+        matrix, which every rank holds alike (the JAX module's
+        ``make_array_from_callback``)."""
         if isinstance(mat, np.ndarray):
             mat = torch.from_numpy(np.ascontiguousarray(mat.astype(np.uint32)).view(np.int32))
         return shard_columns(mat, self.mesh)

@@ -27,6 +27,15 @@ layout, ``(8, C, R/D)`` shards indexed ``[k2, k1_local]``
   device-tree sized, the host tree over the codeword's digits below;
   openings are one ``mont_digits`` gather launch a shard.
 
+On a mesh that spans ranks (:class:`~stark_tpu_torch.parallel.mesh.SpanningMesh`)
+each rank runs the same prover program and the core's per-shard steps on
+its own shards only; every crossing is a collective that every rank
+calls in the same order: the exchanges and the next-row halo (one
+all-to-all each), and the all-gathers of the degree probe's maxima, the
+digits, the opened values, the FRI tail and the trees' roots, siblings
+and tails.  Every rank gets the same bytes, so every rank's transcript
+is the same.
+
 The core has no fused FRI cascade, no ``extend_mont`` and no
 ``extend_codeword_be17``: ``Stark`` and ``Fri`` test for them, so a
 sharded prove interpolates its trace on the host (its products on the
@@ -57,8 +66,8 @@ from ..ops.device_merkle import TAIL_WIDTH, DeviceMerkleTree
 from ..ops.device_prover import DeviceCodeword, mont_to_digits
 from ..ops.limbs import from_numpy, mont_tensor, pack, to_numpy
 from .fold_sharded import ShardedFold, power_table, separable_table
-from .merkle_sharded import ShardedMerkleTree
-from .mesh import Mesh, ShardedArray, exchange, normalize
+from .merkle_sharded import RemoteBlock, ShardedMerkleTree
+from .mesh import Mesh, ShardedArray, allgather_shards, exchange, home, move_pieces, normalize, owned
 from .ntt_sharded import ShardedNTT
 
 
@@ -73,7 +82,7 @@ class ShardedProverCore:
         self.n = n
         self.offset = offset % P
         self.mesh = normalize(mesh)
-        self.device = self.mesh[0]  # where gathers, fetches and the tail meet
+        self.device = home(self.mesh)  # where gathers, fetches and the tail meet
         self.sntt = ShardedNTT(n, self.mesh)
         self.R, self.C, self.d = self.sntt.R, self.sntt.C, self.sntt.d
         self.fold_sharded = ShardedFold(self.mesh, self.R)
@@ -96,10 +105,10 @@ class ShardedProverCore:
             NUM_LIMBS, self.R, self.C)
         cl = self.C // self.d
         shards = []
-        for s, dev in enumerate(self.mesh):  # each shard's columns uploaded, into Montgomery form (K10)
+        for s, dev in owned(self.mesh):  # each own shard's columns uploaded, into Montgomery form (K10)
             block = from_numpy(np.ascontiguousarray(mat[:, :, s * cl:(s + 1) * cl]), dev)
             shards.append(cf.to_mont(_flat(block)).reshape(NUM_LIMBS, self.R, cl))
-        return self.sntt.forward(ShardedArray(shards), self.offset)
+        return self.sntt.forward(ShardedArray(shards, self.mesh), self.offset)
 
     def extend_codeword(self, coeffs: Sequence[int]) -> DeviceCodeword:
         return DeviceCodeword(self.extend(coeffs), self)
@@ -110,24 +119,32 @@ class ShardedProverCore:
         return self.sntt.inverse_from_fourstep(cw, self.offset)
 
     def restrict_iszero(self, cw: ShardedArray) -> np.ndarray:
-        """Degree probe: natural-order is-zero bitmap of the coefficients."""
+        """Degree probe: natural-order is-zero bitmap of the coefficients
+        (every rank's shards gathered)."""
         coeffs = self._coefficients(cw)
-        z = torch.cat([fo.is_zero(t).cpu() for t in coeffs.shards], dim=1)  # (R, C)
-        return z.reshape(self.n).numpy()
+        z = torch.cat([fo.is_zero(t).to(self.device, torch.uint8) for t in coeffs.shards], dim=1)  # (R, own columns)
+        z = allgather_shards(self.mesh, z, [self.C // self.d] * self.d)  # (R, C)
+        return z.cpu().numpy().astype(bool).reshape(self.n)
 
     def degree_probe(self, stack: Sequence[ShardedArray]) -> List[int]:
         """Degrees of codewords (the zero polynomial reports 0, the host
-        quirk), reduced on the devices to one (k,)-int fetch."""
+        quirk): each process's shards reduced on their devices, then the
+        maxima of every rank's, one (k,)-int fetch."""
         cl = self.C // self.d
         outs = []
         for cw in stack:
             per = []
-            for s, t in enumerate(self._coefficients(cw).shards):
+            for s, t in self._coefficients(cw).owned():
                 j = (torch.arange(self.R, device=t.device)[:, None] * self.C + s * cl
                      + torch.arange(cl, device=t.device)[None, :])
                 per.append(torch.where(fo.is_zero(t), 0, j).max().to(self.device))
             outs.append(torch.stack(per).max())
-        return [int(v) for v in torch.stack(outs).cpu()] if outs else []
+        if not outs:
+            return []
+        mine = torch.stack(outs).reshape(-1, 1)  # (k, 1): this process's maxima
+        per_process = len(owned(self.mesh))
+        cols = [int(s % per_process == 0) for s in range(self.d)]  # one column a process, on its first shard
+        return [int(v) for v in allgather_shards(self.mesh, mine, cols).max(dim=1).values.cpu()]
 
     # -- layout / commitment ------------------------------------------------
 
@@ -140,17 +157,19 @@ class ShardedProverCore:
 
     def to_digits(self, mont) -> np.ndarray:
         """Natural-order (len, 4) digit matrix of either layout: one
-        ``mont_digits`` launch a shard, joined on the host."""
+        ``mont_digits`` launch a shard, every rank's shards gathered."""
         if isinstance(mont, torch.Tensor):  # the tail, on one device
             return mont_to_digits(mont)
         _, c, rl = mont.shards[0].shape
-        parts = [to_numpy(mont_digits(_flat(t))).reshape(4, c, rl) for t in mont.shards]
-        return np.ascontiguousarray(np.concatenate(parts, axis=2).reshape(4, -1).T)
+        local = torch.cat([mont_digits(_flat(t)).to(self.device).reshape(4 * c, rl) for t in mont.shards], dim=1)
+        full = allgather_shards(self.mesh, local, [int(rl)] * self.d)  # (4 c, R): [k2, k1] a digit
+        return np.ascontiguousarray(to_numpy(full).reshape(4, -1).T)
 
     def gather_values(self, mont: ShardedArray, idx: List[int]):
-        """(order, (4, K) digits on the first shard's device) of natural
-        indices ``idx``: one gather launch a shard that holds any of them,
-        ``order`` the indices in the order of the columns."""
+        """(order, (4, K) digits on the home device) of natural indices
+        ``idx``: one gather launch a shard this process holds that holds
+        any of them, every rank's gathered; ``order`` the indices in the
+        order of the columns."""
         per: Dict[int, Tuple[List[int], List[int]]] = {}
         for k in idx:
             s, local = self._locate(k)
@@ -158,17 +177,25 @@ class ShardedProverCore:
             per[s][0].append(k)
             per[s][1].append(local)
         order, arrs = [], []
+        mine = dict(mont.owned())
         for s in sorted(per):
             ks, local = per[s]
             order += ks
-            arrs.append(mont_digits(_flat(mont.shards[s]), local).to(self.device))
-        return order, torch.cat(arrs, dim=1)
+            if s in mine:
+                arrs.append(mont_digits(_flat(mine[s]), local).to(self.device))
+        local = torch.cat(arrs, dim=1) if arrs else torch.zeros((4, 0), dtype=torch.int32, device=self.device)
+        return order, allgather_shards(self.mesh, local, [len(per[s][0]) if s in per else 0 for s in range(self.d)])
 
     def natural_digit_blocks(self, mont: ShardedArray) -> List[np.ndarray]:
         """Shard b's natural-order block of n/D leaves as (n/D, 4) digit
-        rows, after the block exchange (the JAX module's API; the prover
-        commits through :meth:`merkle_tree`)."""
-        return [np.ascontiguousarray(to_numpy(mont_digits(_flat(b))).T) for b in exchange(mont).shards]
+        rows, after the block exchange, every block on every rank (the JAX
+        module's API, sized for small codewords; the prover commits
+        through :meth:`merkle_tree`, which gathers no block)."""
+        blocks = exchange(mont)
+        w = mont.shape[1] * mont.shape[2] // self.d
+        local = torch.cat([mont_digits(_flat(b)).to(self.device) for b in blocks.shards], dim=1)
+        full = to_numpy(allgather_shards(self.mesh, local, [w] * self.d))
+        return [np.ascontiguousarray(full[:, b * w:(b + 1) * w].T) for b in range(self.d)]
 
     def merkle_tree(self, dcw: DeviceCodeword):
         """Commitment: while a natural-order block of n/D leaves is
@@ -177,9 +204,12 @@ class ShardedProverCore:
         (:class:`ShardedMerkleTree`); below, the host's native C over the
         codeword's digits, which then also serve the openings."""
         mont = dcw.mont
+        block = len(dcw) // self.d
         if (isinstance(mont, ShardedArray) and mont.shape[1] % self.d == 0 and dcw._digits is None
-                and len(dcw) // self.d >= max(device_merkle.DEVICE_TREE_MIN, 2 * TAIL_WIDTH)):
-            return ShardedMerkleTree([DeviceMerkleTree(_flat(b)) for b in exchange(mont).shards], self.device)
+                and block >= max(device_merkle.DEVICE_TREE_MIN, 2 * TAIL_WIDTH)):
+            trees = {s: DeviceMerkleTree(_flat(b)) for s, b in exchange(mont).owned()}
+            blocks = [trees[s] if s in trees else RemoteBlock(block) for s in range(self.d)]
+            return ShardedMerkleTree(blocks, self.device, self.mesh)
         return MerkleTree.from_digits(dcw.digits)
 
     # -- FRI fold ------------------------------------------------------------
@@ -215,40 +245,45 @@ class ShardedProverCore:
             step = pow(omega, shift, P)
             row_base = pow(omega, shift * self.R % (P - 1), P)
             shards = []
-            for s, dev in enumerate(self.mesh):
+            for s, dev in owned(self.mesh):
                 start = pow(self.offset, shift, P) * pow(step, s * rl, P) % P
                 shards.append(separable_table(row_base, self.C, step, start, rl, dev).reshape(NUM_LIMBS, self.C, rl))
-            tab = self._shift_tables[key] = ShardedArray(shards)
+            tab = self._shift_tables[key] = ShardedArray(shards, self.mesh)
         return tab
 
     # -- batch inversion -------------------------------------------------------
 
     def inverse(self, mont: ShardedArray) -> ShardedArray:
         """Elementwise inversion, zero to zero: K7 a shard."""
-        return ShardedArray([cf.mont_inv(_flat(t).contiguous()).reshape(t.shape) for t in mont.shards])
+        return ShardedArray([cf.mont_inv(_flat(t).contiguous()).reshape(t.shape) for t in mont.shards], self.mesh)
 
     # -- the combination -------------------------------------------------------
 
     def next_rows(self, cw: ShardedArray, expansion: int) -> List[torch.Tensor]:
-        """Per shard, the (8, C * R/D) codeword of next[k] = cw[(k + E) mod
-        n] at the shard's points, by slices and copies: the shard's k1
-        range moved on by E, the part past R wrapped to k1 - R and k2 + 1."""
+        """Per own shard, the (8, C * R/D) codeword of next[k] = cw[(k + E)
+        mod n] at the shard's points, by slices and copies: the shard's k1
+        range moved on by E, the part past R wrapped to k1 - R and k2 + 1.
+        The pieces from another rank's shards (the halo) come in one
+        all-to-all."""
         _, c, rl = cw.shards[0].shape
-        out = []
-        for s, dev in enumerate(self.mesh):
-            pieces = []
+
+        def piece(src: int, off: int, take: int, wraps: int):
+            def make():
+                t = cw.shard(src)[:, :, off:off + take]
+                return torch.roll(t, -wraps, dims=1) if wraps else t  # row k2 takes row k2 + wraps
+            return make
+
+        plan = []  # (source shard, destination shard, shape, make), every destination's
+        for s in range(self.d):
             g, end = s * rl + expansion, (s + 1) * rl + expansion
             while g < end:
                 wraps, k1 = divmod(g, self.R)
                 src, off = divmod(k1, rl)
                 take = min(rl - off, end - g)
-                piece = cw.shards[src][:, :, off:off + take]
-                if wraps:
-                    piece = torch.roll(piece, -wraps, dims=1)  # row k2 takes row k2 + wraps
-                pieces.append(piece.to(dev))
+                plan.append((src, s, (NUM_LIMBS, int(c), take), piece(src, off, take, wraps)))
                 g += take
-            out.append(_flat(torch.cat(pieces, dim=2)))
-        return out
+        got = move_pieces(self.mesh, plan)
+        return [_flat(torch.cat([t for t, p in zip(got, plan) if p[1] == s], dim=2)) for s, _ in owned(self.mesh)]
 
     def combination_fn(self, structure: tuple, num_bq: int, expansion: int):
         """The one-device core's combination, one K11 launch a shard with
@@ -263,19 +298,19 @@ class ShardedProverCore:
         def comb_fn(trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs, bq_shift_tabs):
             nexts = [self.next_rows(cw, expansion) for cw in trace_cws]
             combs, tqs = [], [[] for _ in structure]
-            for s, dev in enumerate(self.mesh):
+            for i, (s, dev) in enumerate(owned(self.mesh)):  # i: the shard's place among this process's
                 def local(arrs):
-                    return [_flat(a.shards[s]) for a in arrs]
+                    return [_flat(a.shards[i]) for a in arrs]
 
                 comb, stack = cuda_combination.combination(
-                    program, local(trace_cws), local(group_cws), local(tz_invs), _flat(rand_cw.shards[s]),
+                    program, local(trace_cws), local(group_cws), local(tz_invs), _flat(rand_cw.shards[i]),
                     local(bq_cws), weights.to(dev), local(tq_shift_tabs), local(bq_shift_tabs),
-                    next_cws=[nx[s] for nx in nexts])
-                shape = rand_cw.shards[s].shape
+                    next_cws=[nx[i] for nx in nexts])
+                shape = rand_cw.shards[i].shape
                 combs.append(comb.reshape(shape))
                 for c in range(len(structure)):
                     tqs[c].append(stack[c].reshape(shape))
-            return ShardedArray(combs), [ShardedArray(t) for t in tqs]
+            return ShardedArray(combs, self.mesh), [ShardedArray(t, self.mesh) for t in tqs]
 
         self._comb_cache[key] = comb_fn
         return comb_fn
@@ -285,11 +320,11 @@ class ShardedBackend(TorchBackend):
     """Backend that runs the device-resident prover over a mesh: attach it
     to ``Stark`` (the models' ``backend=``) for a sharded prove.  Its
     host-list stages (the trace interpolation's products) run on the
-    mesh's first device."""
+    mesh's home device (each rank's own on a spanning mesh)."""
 
     def __init__(self, mesh: Mesh, device_prover_min: int = 4096) -> None:
-        super().__init__(mesh[0])
         self.mesh = normalize(mesh)
+        super().__init__(home(self.mesh))
         self.device_prover_min = device_prover_min
         self._core_cache: Dict[Tuple[int, int], ShardedProverCore] = {}
 

@@ -864,3 +864,50 @@ def test_service_round_trip_on_the_card(cuda):
     finally:
         server.shutdown()
         server.server_close()
+
+
+def _multiprocess_fib_2000(cuda, tmp_path, *options):
+    """The multi-controller launcher at fib-2000 (16,384 points, committed
+    through device subtrees of 2048 leaves spanning the ranks once
+    DEVICE_TREE_MIN is 2048) and an NTT of 2^14, 2 ranks x 4 shards; every
+    rank's proof must be the one-device prover's bytes (the workers check
+    the digest and raise otherwise)."""
+    from stark_tpu_torch.benches import multiprocess_mesh
+    from stark_tpu_torch.models.fibonacci import FibonacciStark
+
+    _, proof = FibonacciStark(2000, device=cuda, rng=DeterministicRandom(11)).prove(FieldElement(3), FieldElement(7))
+    digest = hashlib.sha256(proof).hexdigest()
+    ranks = multiprocess_mesh.run(
+        ["--device", "cuda", "--ranks", "2", "--shards-per-rank", "4", "--log-n", "14", "--steps", "2000",
+         "--device-tree-min", "2048", "--inputs", "3", "7", "--seed", "11", "--device-prover-min", "4096",
+         "--expect-digest", digest,
+         "--rendezvous", str(tmp_path / "rendezvous"), "--timeout", "300", *options])
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        (fib,) = r["fib"]
+        assert (fib["sha256"], fib["verified"], fib["plain_field_ops_on_cuda"]) == (digest, True, 0)
+        assert fib["commitments"].get("ShardedMerkleTree", 0) > 0
+        assert fib["exchanges"]["remote_bytes"] > 0
+        assert fib["launches"]["combination_next"] == 4 and "combination" not in fib["launches"]
+        assert r["ntt"]["identical_to_one_device"] and r["ntt"]["round_trip"] and r["tree"]["identical_to_one_device"]
+    return ranks
+
+
+def test_multiprocess_mesh_of_two_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks share cuda:0 over gloo: every crossing staged through host
+    buffers."""
+    ranks = _multiprocess_fib_2000(cuda, tmp_path, "--backend", "gloo")
+    assert all(r["staged"] and r["device"] == "cuda:0" for r in ranks)
+    # every byte that crossed went down to the host on one rank and up on the other
+    staged, remote = (sum(r["fib"][0]["exchanges"][k] for r in ranks) for k in ("staged_bytes", "remote_bytes"))
+    assert staged == 2 * remote > 0
+
+
+def test_multiprocess_mesh_over_nccl(cuda, tmp_path):
+    """One rank a card over NCCL, crossings on device buffers."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL runs one rank a card: needs 2 cards")
+    ranks = _multiprocess_fib_2000(cuda, tmp_path, "--backend", "nccl", "--cards", "2")
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:1"]
+    for r in ranks:
+        assert not r["staged"] and r["fib"][0]["exchanges"]["staged_bytes"] == 0
