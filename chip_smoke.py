@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # the whole check, below
     python3 chip_smoke.py --times DIR   # NTT, Fiat-Shamir, Merkle, K7, K8 and K9 times of the checkout at DIR
     python3 chip_smoke.py --proves DIR  # warm fib-2^16 proves of the checkout at DIR, the collector paused
+    python3 chip_smoke.py --precompile THREADS MODELS FIB_SHA CHAIN_SHA  # phase 9's child, alone
 
 Phases (one line each; any failure raises and the exit code is non-zero):
 
@@ -18,7 +19,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    a line of their launch shape, registers and resident blocks per SM
    at 2^17 and 2^20; untimed, the forward and coset-inverse transforms
    from 2^6 to 2^12, which a short trace's device interpolation runs on
-   the card), the Blake2b-256 leaf and level kernels at 2^20 (the leaf
+   the card; K2 and K3 in clusters of 1, 2 and 4 blocks, at the shapes of
+   a shard 1, 2 and 4 wide of 2^6, 2^8 and 2^10 points over
+   ``MESH_SHARDS`` shards, with row/col multipliers, each timed), the Blake2b-256 leaf and level kernels at 2^20 (the leaf
    kernel on digits and on Montgomery limbs, as a prove runs it; the level
    kernel timed at every width of a 2^20 tree), the digit conversion
    (``mont_digits``) at ``DIGIT_SIZES`` against its plain version and the
@@ -154,10 +157,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    seconds), with its launches of each kernel (every kernel of the
    sharded path > 0, K11's one-device form 0 and its next-row form once
    a shard), ``count_plain_calls`` 0, peak device MiB and the chunk
-   exchanges' calls and bytes; then RescueChainStark(4) over a mesh of 4
-   shards (its 1024-point domain gives a shard of 8 shards 4 columns,
-   below the NTT passes' cluster of 8) with ``device_prover_min`` 1024,
-   byte-identical to the host prover, its combination the next-row form;
+   exchanges' calls and bytes; then RescueChainStark(4) over
+   ``MESH_SHARDS`` shards (its 1024-point domain gives a shard 4 columns
+   and 4 rows: K2 and K3 in clusters of 4) with ``device_prover_min``
+   1024, byte-identical to the host prover, its combination the next-row
+   form, its NTT launches by size;
 8. the mesh over two processes (``stark_tpu_torch.benches.multiprocess_mesh``,
    the multi-controller mode over ``torch.distributed``): 2 ranks of
    ``MESH_SHARDS`` / 2 shards each, both on ``cuda:0`` over gloo (NCCL
@@ -175,7 +179,18 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    warm seconds and peak device MiB beside phase 7's, and the phase's
    seconds; a worker that fails or outlives ``MP_TIMEOUT_S`` is killed
    and the phase raises;
-9. a JSON line of the kernels, K11 (``combination``), ``mont_digits`` and
+9. ``precompile`` in fresh child processes (``--precompile``), so that
+   nothing the phases before cached is warm: with 6 threads,
+   FibonacciStark(65536) with phase 4's seed, then RescueChainStark(4096)
+   with phase 5's input (its AIR built first, timed apart), each the
+   warm-up's job seconds, then the first and a warm prove (the collector
+   paused in each, the allocator's reserved MiB after each), the first
+   proof's SHA-256 equal to phase 4's or 5's and every kernel it launches
+   launched by the warm-up; then fib-2^16 with one thread; a child that
+   fails or outlives ``PRECOMPILE_TIMEOUT_S`` fails the phase; one line
+   with both children's results beside phases 4 and 5's cold and warm
+   seconds;
+10. a JSON line of the kernels, K11 (``combination``), ``mont_digits`` and
    ``mont_digits_gather`` among them, and the variants of the sharded path,
    K11's next-row form (``combination_next``) and K10's row-by-column
    form (``mont_outer``), checked and timed in phase 2 at a shard's shape
@@ -187,7 +202,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    ``chain_launches`` and ``chain_prove_ms``: the chain prove's;
    ``multiprocess_launches``: phase 8's cold prove's, both ranks'; the
    probes' prove times null;
-   ``library_ms`` the stub's library call, else null;
+   ``library_ms`` the stub's library call, else null; K2 and K3 also
+   ``cluster_widths``: phase 2's checks and times at each narrower
+   cluster, with its launches in phase 7's chain-4;
    ``function_bound_ms`` B2's bound for the three chains of the field
    product, else null; ``launch_floor_ms`` the empty kernel's time beside
    the latency-bound kernels, else null),
@@ -288,6 +305,7 @@ PREFIX_LARGE = ((1 << 21) + 1, 1 << 23)
 # rows + 8 randomizers, n + 1 and 2n - 1; checked (and its K8 calls
 # counted) like the fib-2^16 prove's sizes
 CHAIN_HASHES = 4096
+CHAIN_INPUT = 123456789
 CHAIN_ROWS = 28 * CHAIN_HASHES + 8
 CHAIN_FIELD_SIZES = (CHAIN_ROWS, CHAIN_ROWS + 1, 2 * CHAIN_ROWS - 1)
 CHAIN_PREFIX_CALLS = {CHAIN_ROWS: 8, CHAIN_ROWS + 1: 2, 2 * CHAIN_ROWS - 1: 2}
@@ -324,6 +342,10 @@ GATHER_TIMED = {"fib": (1, 4), "chain": (27, 4)}
 # the kernels line sets the launch floor (an empty kernel's time)
 # the mesh of phase 7: its shards
 MESH_SHARDS = 8
+# the widths of the NTT passes' clusters below 8 blocks, the shards of 2^6,
+# 2^8 and 2^10 points over MESH_SHARDS shards (chain-4's 1024-point domain
+# gives the 4-wide one), checked and timed in phase 2
+NARROW_WIDTHS = (1, 2, 4)
 # the kernels every per-shard step of the mesh prove runs (no cascade: no
 # fs_round; host trace interpolation: no prefix_mul; blocks of 2^17: no
 # level kernel)
@@ -338,6 +360,8 @@ LATENCY_BOUND = ("merkle_top", "fs_round", "mont_digits_gather")
 # seconds after which the launcher kills them
 MP_RANKS = 2
 MP_TIMEOUT_S = 600
+# the seconds after which a precompile child (phase 9) is killed
+PRECOMPILE_TIMEOUT_S = 600
 # the chain probes that compute the field product a * t^10 * 2^-1280: B2
 # (``fe_mul``) and B3's base and hint16 (the TPU's 16-bit CIOS)
 PROBE_FIELD_PRODUCT = ("probe_mont_chain", "probe_mont16_chain/base", "probe_mont16_chain/hint16")
@@ -1125,9 +1149,9 @@ def mesh_phase(torch, dev, fib_steps: int, fib_claim, fib_proof: bytes, one_devi
                   "exchanges": exchanges, "stages_seconds": stages}
     del model, backend
 
-    # chain-4 over 4 shards: its 1024-point domain at 8 shards would give a
-    # shard 4 columns, fewer than the NTT passes' cluster of 8
-    chain_mesh = make_mesh(4)
+    # chain-4 over MESH_SHARDS shards: its 1024-point domain gives a shard 4
+    # columns and 4 rows, so its K2/K3 run in clusters of 4
+    chain_mesh = make_mesh(MESH_SHARDS)
     x = FieldElement(77)
     host = RescueChainStark(4, device=None, rng=DeterministicRandom(SEED))
     chain = RescueChainStark(4, backend=ShardedBackend(chain_mesh, device_prover_min=1024),
@@ -1138,12 +1162,19 @@ def mesh_phase(torch, dev, fib_steps: int, fib_claim, fib_proof: bytes, one_devi
     with guard.count_plain_calls() as plain_chain:
         chain_out = chain.prove(x)
     chain_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    shard_points = chain.stark.fri_domain_length // len(chain_mesh)
+    chain_ntt_by_size = {n: {k: c for k, c in v.items() if k.startswith("ntt_")}
+                         for n, v in sorted(kernels.LAUNCHES_BY_SIZE.items())}
     if chain_out != host.prove(x) or sum(plain_chain.values()):
         raise AssertionError(f"chain-4 over the mesh differs from the host prover (plain calls {dict(plain_chain)})")
     if chain_launches.get("combination_next") != len(chain_mesh) or chain_launches.get("combination"):
         raise AssertionError(f"chain-4 over the mesh launched {chain_launches}")
+    if not chain_ntt_by_size.get(shard_points):
+        raise AssertionError(f"chain-4 over the mesh ran no NTT pass on a shard's {shard_points} points")
     out["chain"] = {"hashes": 4, "shards": len(chain_mesh), "fri_domain": chain.stark.fri_domain_length,
-                    "identical_to_host": True, "proof_bytes": len(chain_out[1]), "launches": chain_launches}
+                    "identical_to_host": True, "proof_bytes": len(chain_out[1]), "launches": chain_launches,
+                    "shard_points": shard_points,
+                    "ntt_launches_by_size": {n: v for n, v in chain_ntt_by_size.items() if v}}
     return out
 
 
@@ -1197,6 +1228,107 @@ def multiprocess_phase(fib_steps: int, fib_claim, fib_proof: bytes, mesh_fib: di
     return {"ranks": MP_RANKS, "shards": MESH_SHARDS, "backend": "gloo", "identical_to_one_device": True,
             "proof_bytes": ranks[0]["fib"][0]["proof_bytes"], "per_rank": per_rank,
             "mesh_one_process": {k: mesh_fib[k] for k in ("prove_seconds", "warm_prove_seconds", "peak_device_mib")}}
+
+
+def precompile_of(threads: int, models: str, fib_digest: str, chain_digest: str) -> int:
+    """``--precompile THREADS MODELS FIB_SHA256 CHAIN_SHA256``, in a fresh
+    process: for each of MODELS ("fib", "chain", comma-separated) the
+    model of phase 4 (fib-2^16) or phase 5 (chain-4096, its AIR built
+    first) on the card, ``precompile(threads=THREADS)``, then its first
+    and a warm prove, with phase 4's and phase 5's seeds and inputs.  The
+    first proof's SHA-256 must be the given one ("-": not checked), and
+    every kernel the first prove launches must have been launched by the
+    precompile; both proves run with the collector paused.  Prints one
+    JSON line, and raises on any failure."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch finds no CUDA device: this check needs one card")
+    sys.path.insert(0, REPO)
+    from stark_tpu_torch.field import FieldElement
+    from stark_tpu_torch.models.fibonacci import FibonacciStark
+    from stark_tpu_torch.models.rescue_chain import RescueChainStark
+    from stark_tpu_torch.ops import kernels
+    from stark_tpu_torch.rng import DeterministicRandom
+
+    def measure(model, prove, digest: str) -> dict:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        jobs = model.precompile(threads=threads)
+        torch.cuda.synchronize()
+        precompile_s = time.perf_counter() - t0
+        warmed = {k for k, v in kernels.LAUNCHES.items() if v}
+        kernels.reset_launch_counts()
+
+        def timed():
+            """(proof, seconds, stages, reserved MiB after) of one prove, the
+            collector paused (a collection of the AIR's heap lands in one
+            prove or another, as in --proves)."""
+            gc.collect()
+            gc.disable()
+            try:
+                t0 = time.perf_counter()
+                proof = prove()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            finally:
+                gc.enable()
+            totals = model.stark.last_profile.totals
+            stages = {k: v for k, v in sorted(totals.items(), key=lambda kv: -kv[1])
+                      if "/" not in k or k.startswith("combination/")}
+            return proof, seconds, stages, torch.cuda.memory_reserved() / 2**20
+
+        reserved_mib = torch.cuda.memory_reserved() / 2**20
+        proof, first_s, first_stages, first_reserved = timed()
+        unwarmed = sorted(k for k, v in kernels.LAUNCHES.items() if v and k not in warmed)
+        _, warm_s, warm_stages, warm_reserved = timed()
+        sha = hashlib.sha256(proof).hexdigest()
+        if digest != "-" and sha != digest:
+            raise AssertionError(f"the proof after precompile is not the one of the phase it repeats ({sha})")
+        if unwarmed:
+            raise AssertionError(f"the first prove after precompile launched kernels precompile did not: {unwarmed}")
+        return {"precompile_seconds": precompile_s, "jobs_seconds": jobs, "first_prove_seconds": first_s,
+                "warm_prove_seconds": warm_s, "proof_bytes": len(proof), "sha256": sha,
+                "first_stages_seconds": first_stages, "warm_stages_seconds": warm_stages,
+                "reserved_mib": {"after_precompile": reserved_mib, "after_first": first_reserved,
+                                 "after_warm": warm_reserved}}
+
+    out = {"threads": threads}
+    for name in models.split(","):
+        if name == "fib":
+            fib = FibonacciStark(65536, rng=DeterministicRandom(SEED))
+            a, b = FieldElement(3), FieldElement(7)
+            out["fib"] = measure(fib, lambda: fib.prove(a, b)[1], fib_digest)
+        elif name == "chain":
+            chain = RescueChainStark(CHAIN_HASHES, rng=DeterministicRandom(SEED))
+            t0 = time.perf_counter()
+            chain.constraints  # the AIR, built on the host before the warm-up
+            air_s = time.perf_counter() - t0
+            x = FieldElement(CHAIN_INPUT)
+            out["chain"] = dict(measure(chain, lambda: chain.prove(x)[1], chain_digest), air_seconds=air_s)
+        else:
+            raise ValueError(f"unknown model {name!r}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def precompile_phase(fib_digest: str, chain_digest: str) -> dict:
+    """Phase 9: :func:`precompile_of` in fresh child processes, so that
+    nothing the phases before cached is warm: the pool's ``threads`` = 6
+    on fib-2^16 and chain-4096, then one thread on fib-2^16.  A child
+    that fails or outlives ``PRECOMPILE_TIMEOUT_S`` fails the phase."""
+    out = {}
+    for threads, models in ((6, "fib,chain"), (1, "fib")):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--precompile", str(threads), models,
+                               fib_digest, chain_digest], capture_output=True, text=True,
+                              timeout=PRECOMPILE_TIMEOUT_S, cwd=REPO)
+        if proc.returncode != 0:
+            raise AssertionError(f"the precompile child ({threads} threads, {models}) failed with "
+                                 f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        out[f"threads_{threads}"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    return out
 
 
 def main() -> int:
@@ -1276,12 +1408,15 @@ def main() -> int:
 
     def ntt_counts(pass1: bool, log_l: int, log_b: int):
         """Warp instructions of one pass (the kernel with row/col
-        multipliers): each loop's body times the iterations of its
-        2^log_b blocks, 32 threads a warp; the code around the loops is
-        not counted."""
+        multipliers, in clusters as wide as ``launch_shape`` picks): each
+        loop's body times the iterations of its 2^log_b blocks, 32 threads
+        a warp; the code around the loops is not counted."""
         L = 1 << log_l
-        tw_shared = cuda_ntt.launch_shape(log_l, log_b)[1] == 2 * 16 * L
-        body = sass.loops(sass.find(funcs, f"ntt_pass_kernelILb{int(pass1)}ELb{int(tw_shared)}ELb1E"))
+        shape = cuda_ntt.launch_shape(log_l, log_b)
+        tw_shared = shape.smem_bytes == 2 * 16 * L
+        log_cluster = shape.cluster.bit_length() - 1
+        body = sass.loops(sass.find(
+            funcs, f"ntt_pass_kernelILb{int(pass1)}ELb{int(tw_shared)}ELb1ELi{log_cluster}EE"))
         # [twiddle load], load, radix-4 step, radix-2 stage, store
         if (len(body) != 4 + tw_shared or not all(b.branch_free for b in body)
                 or (body[-3].opcodes["STS"], body[-2].opcodes["STS"], body[-1].opcodes["STG"]) != (4, 2, 8)):
@@ -1443,6 +1578,40 @@ def main() -> int:
     if any(v != (0, 0) for v in small_ntt_errs.values()):
         raise AssertionError(f"NTT kernels disagree with their plain versions at the small sizes: {small_ntt_errs}")
     say("ntt_small_sizes", max_abs_err=small_ntt_errs)
+    # K2/K3 in clusters narrower than 8 blocks: a shard of n = 64 w^2
+    # points over MESH_SHARDS shards is w columns (K2: (8, R, w)) and w
+    # rows (K3: (8, w, C)) wide, R = C = 8 w; each width against its plain
+    # version with row/col multipliers, timed (launches: phase 7's)
+    ntt_widths = {}
+    for width in NARROW_WIDTHS:
+        L = 8 * width
+        log_l, log_w = L.bit_length() - 1, width.bit_length() - 1
+
+        def operand(*shape, seed):
+            size = math.prod(shape)
+            return from_numpy(np.ascontiguousarray(seeded_mont(max(size, 3), seed)[:, :size]), dev).reshape(8, *shape)
+
+        tw = from_numpy(cuda_ntt._pack_stage_twiddles(L, False), dev)
+        x1, w1 = operand(L, width, seed=width), operand(L, width, seed=width + 10)
+        y2 = operand(width, L, seed=width + 20)
+        row, col = operand(L, seed=width + 30), operand(width, seed=width + 40)
+        calls = {"ntt_pass1": (lambda: cuda_ntt.ntt_pass1(x1, tw, w1, row, col),
+                               lambda: cuda_ntt.ntt_pass1_plain(x1, tw, w1, row, col)),
+                 "ntt_pass2": (lambda: cuda_ntt.ntt_pass2(y2, tw, row, col),
+                               lambda: cuda_ntt.ntt_pass2_plain(y2, tw, row, col))}
+        n_shard = L * width
+        bytes_moved = {"ntt_pass1": LIMB_BYTES * (3 * n_shard + 2 * L + width),
+                       "ntt_pass2": LIMB_BYTES * (2 * n_shard + 2 * L + width)}
+        for name, (kernel, plain) in calls.items():
+            if cuda_ntt.launch_shape(log_l, log_w).cluster != width:
+                raise AssertionError(f"{name} of a {width}-wide shard does not run in clusters of {width}")
+            err = max_abs_err(torch, kernel(), plain())
+            if err:
+                raise AssertionError(f"{name} in clusters of {width} disagrees with its plain version: {err}")
+            ntt_widths.setdefault(name, {})[width] = dict(
+                zip(("bound_ms", "bound_by"), bound(bytes_moved[name], ntt_counts(name == "ntt_pass1", log_l, log_w))),
+                max_abs_err=err, ms=device_ms(kernel), plain_ms=call_ms(plain), shard_points=n_shard)
+    say("ntt_cluster_widths", **ntt_widths)
     say("ntt_occupancy", **{f"2^{logn}": {
         "ntt_pass1": cuda_ntt.occupancy(logn // 2, logn - logn // 2, True, device=dev),
         "ntt_pass2": cuda_ntt.occupancy(logn - logn // 2, logn // 2, False, device=dev)} for logn in (17, 20)})
@@ -2260,7 +2429,7 @@ def main() -> int:
     print(f"chain AIR build seconds: {chain_air_s:.3f}", flush=True)
     if rescue_chain._native_rescue() is None:
         raise AssertionError("the chain's witness would come from the Python golden model, not the host library")
-    x = FieldElement(123456789)
+    x = FieldElement(CHAIN_INPUT)
     t0 = time.perf_counter()
     chain.air.trace(x)
     chain_witness_s = time.perf_counter() - t0
@@ -2409,11 +2578,19 @@ def main() -> int:
         for name, count in r["launches"].items():
             mp_launches[name] = mp_launches.get(name, 0) + count
 
+    # -- 9. precompile in fresh processes --------------------------------------
+    t0 = time.perf_counter()
+    say("precompile", **precompile_phase(hashlib.sha256(fib_proof).hexdigest(),
+                                         hashlib.sha256(chain_proof).hexdigest()),
+        cold={"fib": one_device["prove_seconds"], "chain": chain_cold_s},
+        warm={"fib": one_device["warm_prove_seconds"], "chain": chain_warm_s},
+        seconds=time.perf_counter() - t0)
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "stark_tpu") or m.startswith(("jax.", "stark_tpu.")))
     if leaked:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {leaked[:5]}")
 
-    # -- 9. result ------------------------------------------------------------
+    # -- 10. result -----------------------------------------------------------
     sources = {
         "ntt_pass1": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:234"),
         "ntt_pass2": ("stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_ntt.py:311"),
@@ -2456,6 +2633,13 @@ def main() -> int:
          "chain_prove_bound_ms": on_prove(name, chain_bound_ms[name])}
         for name, (src, rep) in sources.items()
     ]
+    # K2/K3's narrower clusters: phase 2's checks and times, launches in
+    # phase 7's chain-4 over the mesh (a shard of 8 w^2 points is w wide)
+    chain_ntt = mesh["chain"]["ntt_launches_by_size"]
+    for row in rows:
+        if row["name"] in ntt_widths:
+            row["cluster_widths"] = {w: dict(v, launches=chain_ntt.get(8 * w * w, {}).get(row["name"], 0))
+                                     for w, v in ntt_widths[row["name"]].items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2467,6 +2651,8 @@ if __name__ == "__main__":
         sys.exit(times_of(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--proves":
         sys.exit(proves_of(sys.argv[2]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--precompile":
+        sys.exit(precompile_of(int(sys.argv[2]), *sys.argv[3:]))
     if len(sys.argv) != 1:
-        sys.exit(f"usage: {sys.argv[0]} [--times DIR | --proves DIR]")
+        sys.exit(f"usage: {sys.argv[0]} [--times DIR | --proves DIR | --precompile THREADS MODELS FIB_SHA CHAIN_SHA]")
     sys.exit(main())

@@ -43,6 +43,13 @@
 // one-column blocks beat wider tiles at 2^20 (PERF.md).  chip_smoke.py
 // prints the registers and resident blocks: 56 (pass 1) and 52 (pass 2)
 // registers, no spills, 4 blocks an SM at 2^20, 9 for pass 1 at 2^17.
+//
+// The cluster's width is a template argument (kLogCluster, 0 to 3):
+// cuda_ntt.launch_shape takes min(8, batch, L) blocks, so a shard of a
+// sharded transform with fewer than 8 columns (or rows) runs in clusters
+// of 4, 2 or 1, each block moving L / width rows of the cluster's
+// columns.  Every one-device transform has 8 or more of each and runs
+// the 8-wide instantiation.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,8 +64,7 @@ using stark::Fe;
 constexpr int kMaxThreads = 256;
 constexpr int kMinBlocksPerSm = 4;  // 65536 registers / (4 * 256 threads) = 64 a thread
 constexpr int kMaxLogL = 12;
-constexpr int kLogCluster = 3;      // 8 one-column blocks: 8 x 4 bytes, one sector a limb plane
-constexpr int kCluster = 1 << kLogCluster;
+constexpr int kMaxLogCluster = 3;   // 8 one-column blocks: 8 x 4 bytes, one sector a limb plane
 
 // Pass 1 (kPass1) reads x[r, c] at r * batch + c and multiplies by the
 // coset prologue (kRowCol) and by W; pass 2 reads y[c, r] at c * L + r
@@ -66,11 +72,13 @@ constexpr int kCluster = 1 << kLogCluster;
 // r * batch + c.  The choices are template arguments, so no loop of an
 // instantiation branches on them, and no loop is unrolled: each body in
 // the SASS is one iteration (chip_smoke.py counts them for the bound).
-template <bool kPass1, bool kTwShared, bool kRowCol>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads, kMinBlocksPerSm)
+// A cluster holds 2^kLogCluster blocks.
+template <bool kPass1, bool kTwShared, bool kRowCol, int kLogCluster>
+__global__ void __cluster_dims__(1 << kLogCluster, 1, 1) __launch_bounds__(kMaxThreads, kMinBlocksPerSm)
 ntt_pass_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, int log_l, int batch,
                 const int32_t* __restrict__ tw, const int32_t* __restrict__ w,
                 const int32_t* __restrict__ row, const int32_t* __restrict__ col) {
+    constexpr int kCluster = 1 << kLogCluster;
     extern __shared__ Fe smem[];
     cg::cluster_group cluster = cg::this_cluster();
     const int L = 1 << log_l;
@@ -79,9 +87,9 @@ ntt_pass_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, int l
     Fe* tws = smem + L;   // stage with half h at [h, 2h)
     const int64_t c0 = blockIdx.x;  // the block's column
     // Loads and stores along the column axis are shared by the cluster:
-    // block `rank` moves rows [r0, r0 + L / 8) of all the cluster's 8
-    // columns, one 8-element run a row, and its element of column cc0 + k
-    // belongs to block k.
+    // block `rank` moves rows [r0, r0 + L / kCluster) of all the cluster's
+    // kCluster columns, one kCluster-element run a row, and its element of
+    // column cc0 + k belongs to block k.
     const int rank = static_cast<int>(cluster.block_rank());
     const int64_t cc0 = c0 - rank;  // the cluster's first column
     const int r0 = rank << (log_l - kLogCluster);
@@ -175,18 +183,37 @@ ntt_pass_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, int l
 using PassKernel = void (*)(const int32_t*, int32_t*, int, int, const int32_t*, const int32_t*, const int32_t*,
                             const int32_t*);
 
-template <bool kPass1>
-PassKernel pass_kernel(bool tw_shared, bool row_col) {
-    if (tw_shared) return row_col ? ntt_pass_kernel<kPass1, true, true> : ntt_pass_kernel<kPass1, true, false>;
-    return row_col ? ntt_pass_kernel<kPass1, false, true> : ntt_pass_kernel<kPass1, false, false>;
+template <bool kPass1, int kLogCluster>
+PassKernel pass_kernel_of_width(bool tw_shared, bool row_col) {
+    if (tw_shared) {
+        return row_col ? ntt_pass_kernel<kPass1, true, true, kLogCluster>
+                       : ntt_pass_kernel<kPass1, true, false, kLogCluster>;
+    }
+    return row_col ? ntt_pass_kernel<kPass1, false, true, kLogCluster>
+                   : ntt_pass_kernel<kPass1, false, false, kLogCluster>;
 }
 
-// Checks the launch shape the host chose (cuda_ntt.launch_shape): at
-// least one cluster of columns and a cluster's share of rows, a block of
-// whole warps within the kernel's bound, and shared memory for the
-// transform with or without the L stage twiddles; sets *tw_shared.
-cudaError_t check_shape(int log_l, int log_b, int threads, int smem, bool* tw_shared) {
-    if (log_l < kLogCluster || log_l > kMaxLogL || log_b < kLogCluster || log_b > 20) return cudaErrorInvalidValue;
+template <bool kPass1>
+PassKernel pass_kernel(bool tw_shared, bool row_col, int log_cluster) {
+    switch (log_cluster) {
+        case 0: return pass_kernel_of_width<kPass1, 0>(tw_shared, row_col);
+        case 1: return pass_kernel_of_width<kPass1, 1>(tw_shared, row_col);
+        case 2: return pass_kernel_of_width<kPass1, 2>(tw_shared, row_col);
+        default: return pass_kernel_of_width<kPass1, kMaxLogCluster>(tw_shared, row_col);
+    }
+}
+
+// Checks the launch shape the host chose (cuda_ntt.launch_shape): a
+// cluster of 2^log_cluster columns, at most 8 and no more than the
+// columns or the rows (a block moves L / 2^log_cluster rows), a transform
+// of at least 2 points, a block of whole warps within the kernel's bound,
+// and shared memory for the transform with or without the L stage
+// twiddles; sets *tw_shared.
+cudaError_t check_shape(int log_l, int log_b, int log_cluster, int threads, int smem, bool* tw_shared) {
+    if (log_l < 1 || log_l > kMaxLogL || log_b < 0 || log_b > 20) return cudaErrorInvalidValue;
+    if (log_cluster < 0 || log_cluster > kMaxLogCluster || log_cluster > log_b || log_cluster > log_l) {
+        return cudaErrorInvalidValue;
+    }
     if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return cudaErrorInvalidValue;
     const int64_t data_bytes = (int64_t{1} << log_l) * static_cast<int64_t>(sizeof(Fe));
     if (smem == data_bytes) *tw_shared = false;
@@ -197,11 +224,12 @@ cudaError_t check_shape(int log_l, int log_b, int threads, int smem, bool* tw_sh
 
 template <bool kPass1>
 int launch_pass(const int32_t* in, int32_t* out, int log_l, int log_b, const int32_t* tw, const int32_t* w,
-                const int32_t* row, const int32_t* col, int threads, int smem, cudaStream_t stream) {
+                const int32_t* row, const int32_t* col, int threads, int smem, int log_cluster,
+                cudaStream_t stream) {
     bool tw_shared;
-    cudaError_t err = check_shape(log_l, log_b, threads, smem, &tw_shared);
+    cudaError_t err = check_shape(log_l, log_b, log_cluster, threads, smem, &tw_shared);
     if (err != cudaSuccess) return err;
-    const PassKernel kernel = pass_kernel<kPass1>(tw_shared, row != nullptr);
+    const PassKernel kernel = pass_kernel<kPass1>(tw_shared, row != nullptr, log_cluster);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     kernel<<<1u << log_b, threads, smem, stream>>>(in, out, log_l, 1 << log_b, tw, w, row, col);
@@ -212,38 +240,40 @@ int launch_pass(const int32_t* in, int32_t* out, int log_l, int log_b, const int
 
 // x, out: (8, R, C); tw: (8, R) packed stage twiddles; w: (8, R, C);
 // row: (8, R) in bit-reversed order and col: (8, C), both null for no
-// prologue; threads, smem: cuda_ntt.launch_shape(log_r, log_c).
+// prologue; threads, smem, log_cluster: cuda_ntt.launch_shape(log_r, log_c).
 extern "C" int stark_ntt_pass1(const int32_t* x, int32_t* out, int log_r, int log_c,
                                const int32_t* tw, const int32_t* w,
                                const int32_t* row, const int32_t* col,
-                               int threads, int smem, void* stream) {
+                               int threads, int smem, int log_cluster, void* stream) {
     if (w == nullptr || (row == nullptr) != (col == nullptr)) return cudaErrorInvalidValue;
-    return launch_pass<true>(x, out, log_r, log_c, tw, w, row, col, threads, smem, static_cast<cudaStream_t>(stream));
+    return launch_pass<true>(x, out, log_r, log_c, tw, w, row, col, threads, smem, log_cluster,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // y: (8, R, C) pass-1 output; out: (8, C, R); tw: (8, C);
 // row: (8, C) and col: (8, R), both null for no epilogue;
-// threads, smem: cuda_ntt.launch_shape(log_c, log_r).
+// threads, smem, log_cluster: cuda_ntt.launch_shape(log_c, log_r).
 extern "C" int stark_ntt_pass2(const int32_t* y, int32_t* out, int log_r, int log_c,
                                const int32_t* tw, const int32_t* row, const int32_t* col,
-                               int threads, int smem, void* stream) {
+                               int threads, int smem, int log_cluster, void* stream) {
     if ((row == nullptr) != (col == nullptr)) return cudaErrorInvalidValue;
-    return launch_pass<false>(y, out, log_c, log_r, tw, nullptr, row, col, threads, smem,
+    return launch_pass<false>(y, out, log_c, log_r, tw, nullptr, row, col, threads, smem, log_cluster,
                               static_cast<cudaStream_t>(stream));
 }
 
-// What the card makes of one pass's launch shape, for the instantiation
-// with row/col multipliers (the prover's coset extension in pass 1, its
-// inverse in pass 2): the kernel's registers a thread and local (spill)
-// bytes, how many of its blocks of `threads` threads with `smem` bytes
+// What the card makes of one pass's launch shape, for the 8-wide
+// instantiation with row/col multipliers (the prover's coset extension in
+// pass 1, its inverse in pass 2): the kernel's registers a thread and
+// local (spill) bytes, how many of its blocks of `threads` threads with `smem` bytes
 // of shared memory an SM holds at once, and how many of its clusters the
 // card holds at once.
 extern "C" int stark_ntt_occupancy(int pass1, int log_l, int threads, int smem, int* registers, int* local_bytes,
                                    int* blocks_per_sm, int* active_clusters) {
     bool tw_shared;
-    cudaError_t err = check_shape(log_l, kLogCluster, threads, smem, &tw_shared);
+    cudaError_t err = check_shape(log_l, kMaxLogCluster, kMaxLogCluster, threads, smem, &tw_shared);
     if (err != cudaSuccess) return err;
-    const PassKernel kernel = pass1 ? pass_kernel<true>(tw_shared, true) : pass_kernel<false>(tw_shared, true);
+    const PassKernel kernel = pass1 ? pass_kernel<true>(tw_shared, true, kMaxLogCluster)
+                                    : pass_kernel<false>(tw_shared, true, kMaxLogCluster);
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
@@ -254,7 +284,7 @@ extern "C" int stark_ntt_occupancy(int pass1, int log_l, int threads, int smem, 
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(kCluster * 1024, 1, 1);
+    cfg.gridDim = dim3((1 << kMaxLogCluster) * 1024, 1, 1);
     cfg.blockDim = dim3(threads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     return cudaOccupancyMaxActiveClusters(active_clusters, kernel, &cfg);

@@ -105,6 +105,13 @@ class FibonacciStark:
         )
         self._constraints = self.air.transition_constraints()
 
+    def precompile(self, threads: int = 6):
+        """Warm the device prover before the first prove (see
+        :meth:`stark_tpu_torch.stark.Stark.precompile`)."""
+        zero = FieldElement(0)
+        return self.stark.precompile(self._constraints, threads=threads,
+                                     boundary=self.air.boundary_constraints(zero, zero, zero))
+
     def prove(
         self, seed_a: FieldElement, seed_b: FieldElement
     ) -> Tuple[FieldElement, bytes]:

@@ -282,6 +282,13 @@ class RescueChainStark:
             self._constraints = self.air.transition_constraints(self.stark)
         return self._constraints
 
+    def precompile(self, threads: int = 6):
+        """Warm the device prover before the first prove (see
+        :meth:`stark_tpu_torch.stark.Stark.precompile`), the AIR built
+        first."""
+        return self.stark.precompile(self.constraints, threads=threads,
+                                     boundary=self.air.boundary_constraints(FieldElement(0)))
+
     def prove(self, input_element: FieldElement) -> Tuple[FieldElement, bytes]:
         trace = self.air.trace(input_element)
         output = trace[-1][0]

@@ -30,6 +30,7 @@ limb for limb.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -127,14 +128,17 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 #: (value, device) -> its (8, 1) limb column, uploaded once: an upload from
 #: host memory waits for the device's queue
 _COLUMNS: Dict[tuple, torch.Tensor] = {}
+_COLUMNS_LOCK = threading.Lock()
 
 
 def _plain_column(value: int, device) -> torch.Tensor:
     """(8, 1) int32 limbs of a plain constant on ``device``."""
     key = (value, torch.device(device))
-    col = _COLUMNS.get(key)
-    if col is None:
-        col = _COLUMNS[key] = torch.tensor(limbs_of(value), dtype=torch.int32, device=device).reshape(NUM_LIMBS, 1)
+    with _COLUMNS_LOCK:
+        col = _COLUMNS.get(key)
+        if col is None:
+            col = _COLUMNS[key] = torch.tensor(limbs_of(value), dtype=torch.int32,
+                                               device=device).reshape(NUM_LIMBS, 1)
     return col
 
 
@@ -210,6 +214,9 @@ class ScanStatus:
 
 #: device -> its K8 status buffer
 _STATUS: Dict[torch.device, ScanStatus] = {}
+#: held from a call's claim to its launch: calls from several threads
+#: queue on one stream in the order they claimed their tickets
+_SCAN_LOCK = threading.Lock()
 
 
 def scan_status(tiles: int, device: torch.device) -> ScanStatus:
@@ -228,24 +235,26 @@ def prefix_mul(a: torch.Tensor) -> torch.Tensor:
     the card one launch: a tile of :data:`PREFIX_TILE` elements a block,
     the tiles chained by a decoupled look-back over the device's
     :class:`ScanStatus`.  Two streams must not run it on one device at
-    once (the port uses one).  On a failed launch the status buffer is
-    dropped, so that the next call starts from a zeroed one."""
+    once (the port uses one; threads launching on it take turns from
+    claim to launch).  On a failed launch the status buffer is dropped,
+    so that the next call starts from a zeroed one."""
     n = _columns("a", a)
     dev = _device("prefix_mul", a)
     if dev.type == "cpu":
         return fo.prefix_mul(a)
     out = torch.empty_like(a)
     tiles = -(-n // PREFIX_TILE)
-    status = scan_status(tiles, dev)
-    epoch, base = status.claim(tiles)
-    aggregates, inclusives = status.values
-    try:
-        kernels.launch("prefix_mul", "stark_prefix_mul", kernels.ptr(a), kernels.ptr(out), n,
-                       kernels.ptr(status.ticket), kernels.ptr(status.flags), kernels.ptr(aggregates),
-                       kernels.ptr(inclusives), status.capacity, epoch, base, device=dev, size=n)
-    except RuntimeError:
-        _STATUS.pop(dev, None)
-        raise
+    with _SCAN_LOCK:
+        status = scan_status(tiles, dev)
+        epoch, base = status.claim(tiles)
+        aggregates, inclusives = status.values
+        try:
+            kernels.launch("prefix_mul", "stark_prefix_mul", kernels.ptr(a), kernels.ptr(out), n,
+                           kernels.ptr(status.ticket), kernels.ptr(status.flags), kernels.ptr(aggregates),
+                           kernels.ptr(inclusives), status.capacity, epoch, base, device=dev, size=n)
+        except RuntimeError:
+            _STATUS.pop(dev, None)
+            raise
     return out
 
 

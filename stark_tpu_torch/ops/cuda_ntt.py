@@ -24,7 +24,9 @@ not ported.
 from __future__ import annotations
 
 import ctypes
+import threading
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,12 +42,14 @@ from .limbs import _bit_reverse_indices, _mont_pack, _power_table, from_numpy
 #: device (R = 64, C = 128); the host NTT takes the smaller host-list
 #: transforms, as in the JAX package
 CUDA_NTT_MIN_SIZE = 1 << 13
-#: smallest transform the passes take (R = C = 8: one cluster of columns,
-#: a cluster's share of rows); on the card the device trace
-#: interpolation's transforms run on them from here
+#: smallest transform the one-device plan takes (R = C = 8: one 8-wide
+#: cluster of columns, a cluster's share of rows); on the card the device
+#: trace interpolation's transforms run on it from here
 FOUR_STEP_MIN_SIZE = 1 << 6
 #: longest size-L pass the kernels hold in shared memory
 MAX_PASS_LEN = 1 << 12
+#: most transforms a pass takes (csrc/ntt.cu check_shape)
+_MAX_BATCH = 1 << 20
 
 #: bytes of one field element in the kernels' shared memory
 _FE_BYTES = 16
@@ -55,17 +59,32 @@ _BLOCK_RESERVED_BYTES = 1024
 #: the kernel's block bound (``__launch_bounds__`` in csrc/ntt.cu)
 _MAX_THREADS = 256
 #: blocks of a cluster (``__cluster_dims__`` in csrc/ntt.cu): 8 one-column
-#: blocks load and store 32-byte runs, the card's memory sector
+#: blocks load and store 32-byte runs, the card's memory sector; a batch
+#: of fewer columns (a shard of a sharded transform) runs in clusters of
+#: as many as it has
 CLUSTER_BLOCKS = 8
 
 
-def launch_shape(log_l: int, log_b: int):
-    """(threads, smem_bytes) of one pass of ``2^log_b`` transforms of
-    length ``L = 2^log_l``: a block's threads and dynamic shared memory.
+class LaunchShape(NamedTuple):
+    """One pass's launch: a block's threads and dynamic shared memory, the
+    blocks of a cluster and the rows each of them loads and stores."""
+
+    threads: int
+    smem_bytes: int
+    cluster: int
+    rows: int
+
+
+def launch_shape(log_l: int, log_b: int) -> LaunchShape:
+    """The :class:`LaunchShape` of one pass of ``2^log_b`` transforms of
+    length ``L = 2^log_l``.
 
     A block takes one transform (one batch column, fixed in the kernel):
     a pass launches ``2^log_b`` blocks, at least 256 from 2^17 up, in
-    clusters of :data:`CLUSTER_BLOCKS`.  A block has one thread per
+    clusters of min(:data:`CLUSTER_BLOCKS`, batch, L) blocks, each of
+    which loads and stores L / cluster rows of the cluster's columns: 8
+    for every one-device transform, fewer only for a shard narrower than
+    that.  A block has one thread per
     radix-2 butterfly of a stage (L / 2) up to the kernel's bound of 256,
     in whole warps.  The stage twiddles sit in shared memory beside the
     data where two blocks still fit on an SM (L <= 2048); otherwise the
@@ -78,7 +97,8 @@ def launch_shape(log_l: int, log_b: int):
     smem = L * _FE_BYTES
     if 2 * (2 * smem + _BLOCK_RESERVED_BYTES) <= _SM_SHARED_BYTES:
         smem *= 2
-    return threads, smem
+    cluster = min(CLUSTER_BLOCKS, 1 << log_b, L)
+    return LaunchShape(threads, smem, cluster, L // cluster)
 
 
 def _pack_stage_twiddles(n_t: int, inverse: bool) -> np.ndarray:
@@ -156,7 +176,8 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_pass(x, R, C, tables, row_len, col_len, row, col):
+def _check_pass(x, L, batch, tables, row_len, col_len, row, col):
+    """Checks of one pass of ``batch`` transforms of length ``L``."""
     dev = x.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
@@ -168,10 +189,9 @@ def _check_pass(x, R, C, tables, row_len, col_len, row, col):
         _check("row", row, (NUM_LIMBS, row_len), dev)
         _check("col", col, (NUM_LIMBS, col_len), dev)
     if dev.type == "cuda":
-        n = R * C
-        if n < FOUR_STEP_MIN_SIZE or n & (n - 1) or min(R, C) < CLUSTER_BLOCKS or max(R, C) > MAX_PASS_LEN:
-            raise ValueError(f"the CUDA NTT passes take power-of-two n >= {FOUR_STEP_MIN_SIZE} "
-                             f"with {CLUSTER_BLOCKS} <= R, C <= {MAX_PASS_LEN}; got R={R}, C={C}")
+        if L & (L - 1) or batch & (batch - 1) or not 2 <= L <= MAX_PASS_LEN or not 1 <= batch <= _MAX_BATCH:
+            raise ValueError(f"the CUDA NTT passes take power-of-two transforms of 2 to {MAX_PASS_LEN} points, "
+                             f"1 to {_MAX_BATCH} of them; got {batch} of {L}")
 
 
 def ntt_pass1(x, tw, w, row=None, col=None) -> torch.Tensor:
@@ -181,8 +201,8 @@ def ntt_pass1(x, tw, w, row=None, col=None) -> torch.Tensor:
 
     Replaces ``PallasNTT._pass1`` (stark_tpu/ops/pallas_ntt.py).  One
     block per transform holds it in shared memory, so a pass touches
-    device memory once; clusters of 8 blocks share the loads and stores
-    along the column axis (see csrc/ntt.cu)."""
+    device memory once; clusters of up to 8 blocks share the loads and
+    stores along the column axis (see csrc/ntt.cu)."""
     _, R, C = x.shape
     _check("x", x, (NUM_LIMBS, R, C), x.device)
     _check_pass(x, R, C, [("tw", tw, (NUM_LIMBS, R)), ("w", w, (NUM_LIMBS, R, C))], R, C, row, col)
@@ -190,11 +210,12 @@ def ntt_pass1(x, tw, w, row=None, col=None) -> torch.Tensor:
         return ntt_pass1_plain(x, tw, w, row, col)
     out = torch.empty_like(x)
     log_r, log_c = R.bit_length() - 1, C.bit_length() - 1
+    shape = launch_shape(log_r, log_c)
     kernels.launch(
         "ntt_pass1", "stark_ntt_pass1",
         kernels.ptr(x), kernels.ptr(out), log_r, log_c,
         kernels.ptr(tw), kernels.ptr(w), kernels.ptr(row), kernels.ptr(col),
-        *launch_shape(log_r, log_c),
+        shape.threads, shape.smem_bytes, shape.cluster.bit_length() - 1,
         device=x.device, size=R * C,
     )
     return out
@@ -209,27 +230,29 @@ def ntt_pass2(y, tw, row=None, col=None) -> torch.Tensor:
     bounds and design as :func:`ntt_pass1`."""
     _, R, C = y.shape
     _check("y", y, (NUM_LIMBS, R, C), y.device)
-    _check_pass(y, R, C, [("tw", tw, (NUM_LIMBS, C))], C, R, row, col)
+    _check_pass(y, C, R, [("tw", tw, (NUM_LIMBS, C))], C, R, row, col)
     if y.device.type == "cpu":
         return ntt_pass2_plain(y, tw, row, col)
     out = torch.empty((NUM_LIMBS, C, R), dtype=torch.int32, device=y.device)
     log_r, log_c = R.bit_length() - 1, C.bit_length() - 1
+    shape = launch_shape(log_c, log_r)
     kernels.launch(
         "ntt_pass2", "stark_ntt_pass2",
         kernels.ptr(y), kernels.ptr(out), log_r, log_c,
-        kernels.ptr(tw), kernels.ptr(row), kernels.ptr(col), *launch_shape(log_c, log_r),
+        kernels.ptr(tw), kernels.ptr(row), kernels.ptr(col),
+        shape.threads, shape.smem_bytes, shape.cluster.bit_length() - 1,
         device=y.device, size=R * C,
     )
     return out
 
 
 def occupancy(log_l: int, log_b: int, pass1: bool, device="cuda") -> dict:
-    """One pass's launch as the card sees it, for the kernel with row/col
-    multipliers (the prover's coset extension in pass 1, its inverse in
-    pass 2): :func:`launch_shape`, the blocks of the grid, the kernel's
-    registers a thread and spilled bytes, the blocks an SM holds at once
-    and the clusters the card holds at once."""
-    threads, smem = launch_shape(log_l, log_b)
+    """One pass's launch as the card sees it, for the 8-wide kernel with
+    row/col multipliers (the prover's coset extension in pass 1, its
+    inverse in pass 2): :func:`launch_shape`, the blocks of the grid, the
+    kernel's registers a thread and spilled bytes, the blocks an SM holds
+    at once and the clusters the card holds at once."""
+    threads, smem = launch_shape(log_l, log_b)[:2]
     regs, local, resident, clusters = (ctypes.c_int() for _ in range(4))
     with torch.cuda.device(torch.device(device)):
         err = kernels.library().stark_ntt_occupancy(int(pass1), log_l, threads, smem, *(ctypes.byref(v) for v in (
@@ -303,6 +326,7 @@ class CudaNTT:
             self._tw_C[inv] = from_numpy(_pack_stage_twiddles(self.C, inv), self.device)
             self._W[inv] = self._build_w_table(inv)
         self._row_col_cache = {}
+        self._lock = threading.Lock()
 
     def _build_w_table(self, inverse: bool) -> torch.Tensor:
         """W[k1, j2] = omega^(+-k1*j2), (8, R, C) Montgomery."""
@@ -312,13 +336,14 @@ class CudaNTT:
     def _row_col_tables(self, offset: int, inverse: bool):
         """Coset multipliers (:func:`coset_tables`) on the device."""
         key = (offset % P, inverse)
-        if key not in self._row_col_cache:
-            row, col = coset_tables(offset, inverse, self.R, self.C)
-            self._row_col_cache[key] = (
-                from_numpy(_mont_pack(row), self.device),
-                from_numpy(_mont_pack(col), self.device),
-            )
-        return self._row_col_cache[key]
+        with self._lock:  # threads sharing the plan build each entry once
+            if key not in self._row_col_cache:
+                row, col = coset_tables(offset, inverse, self.R, self.C)
+                self._row_col_cache[key] = (
+                    from_numpy(_mont_pack(row), self.device),
+                    from_numpy(_mont_pack(col), self.device),
+                )
+            return self._row_col_cache[key]
 
     def op_tables(self, inverse: bool, offset: int = 1):
         """Everything :meth:`apply` reads: (W, tw_R, tw_C, row, col) with
@@ -360,6 +385,11 @@ def _cuda_plan(n: int, device: str) -> CudaNTT:
     return CudaNTT(n, device)
 
 
+_PLAN_LOCK = threading.Lock()
+
+
 def get_cuda_plan(n: int, device) -> CudaNTT:
-    """Four-step plan for size n on ``device``, cached per (n, device)."""
-    return _cuda_plan(n, str(torch.device(device)))
+    """Four-step plan for size n on ``device``, cached per (n, device) and
+    built once however many threads ask for it."""
+    with _PLAN_LOCK:
+        return _cuda_plan(n, str(torch.device(device)))

@@ -209,6 +209,7 @@ def pad_rows(arr: torch.Tensor, rows: int) -> torch.Tensor:
 
 #: device -> the (8, 256) Montgomery table of b * 2^128 mod p, b < 256
 _B0_TABLES: Dict[torch.device, torch.Tensor] = {}
+_B0_LOCK = threading.Lock()
 
 
 def be17_mont(raw: bytes, device) -> torch.Tensor:
@@ -227,9 +228,10 @@ def be17_mont(raw: bytes, device) -> torch.Tensor:
     le = np.ascontiguousarray(a[:, 1:][:, ::-1])
     digits = from_numpy(np.ascontiguousarray(le.view("<u4").T), dev).to(torch.int64) & 0xFFFFFFFF
     v0 = torch.stack([digits[k // 2] >> (16 * (k % 2)) & 0xFFFF for k in range(NUM_LIMBS)]).to(torch.int32)
-    table = _B0_TABLES.get(dev)
-    if table is None:
-        table = _B0_TABLES[dev] = mont_tensor([(b << 128) % P for b in range(256)], dev)
+    with _B0_LOCK:
+        table = _B0_TABLES.get(dev)
+        if table is None:
+            table = _B0_TABLES[dev] = mont_tensor([(b << 128) % P for b in range(256)], dev)
     return cuda_field.add(cuda_field.to_mont(v0), table[:, b0].contiguous())
 
 
@@ -267,7 +269,10 @@ def get_core(n: int, offset: int, device) -> "DeviceProverCore":
 
 
 class DeviceProverCore:
-    """Device machinery for one (fri_domain_length, offset, device)."""
+    """Device machinery for one (fri_domain_length, offset, device).  Its
+    table caches are filled under one lock, so threads that share the
+    core (a service's requests, ``Stark.precompile``'s pool) build each
+    entry once."""
 
     def __init__(self, n: int, offset: int, device) -> None:
         self.n = n
@@ -277,6 +282,7 @@ class DeviceProverCore:
         self._inv_tables: Dict[Tuple[int, int, int], torch.Tensor] = {}
         self._shift_tables: Dict[Tuple[int, int], torch.Tensor] = {}
         self._comb_cache: Dict[tuple, object] = {}
+        self._lock = threading.RLock()
         self._fwd_tabs = self.plan.op_tables(False, self.offset)
         self._inv_tabs = self.plan.op_tables(True, self.offset)
 
@@ -351,9 +357,11 @@ class DeviceProverCore:
         """[(offset * omega^i)^{-1}, i < half] = geometric series with base
         omega^{-1} and start offset^{-1}, built on the device."""
         key = (offset % P, omega % P, half)
-        tab = self._inv_tables.get(key)
-        if tab is None:
-            tab = self._inv_tables[key] = geometric_table(pow(omega, -1, P), pow(offset, -1, P), half, self.device)
+        with self._lock:
+            tab = self._inv_tables.get(key)
+            if tab is None:
+                tab = self._inv_tables[key] = geometric_table(pow(omega, -1, P), pow(offset, -1, P), half,
+                                                              self.device)
         return tab
 
     def fold(self, dcw: DeviceCodeword, alpha: int, offset: int, omega: int) -> DeviceCodeword:
@@ -408,11 +416,12 @@ class DeviceProverCore:
     def shift_table(self, shift: int, omega: int) -> torch.Tensor:
         """Codeword of x^shift over the coset: offset^shift * omega^(shift*i)."""
         key = (shift, omega % P)
-        tab = self._shift_tables.get(key)
-        if tab is None:
-            tab = self._shift_tables[key] = geometric_table(
-                pow(omega, shift, P), pow(self.offset, shift, P), self.n, self.device
-            )
+        with self._lock:
+            tab = self._shift_tables.get(key)
+            if tab is None:
+                tab = self._shift_tables[key] = geometric_table(
+                    pow(omega, shift, P), pow(self.offset, shift, P), self.n, self.device
+                )
         return tab
 
     # -- batch inversion ---------------------------------------------------
@@ -440,8 +449,9 @@ class DeviceProverCore:
         ``ValueError`` beyond the kernel's limits); the function runs it as
         one K11 launch on the card, its plain interpreter on the CPU."""
         key = (structure, num_bq, expansion)
-        fn = self._comb_cache.get(key)
-        if fn is None:
-            program = cuda_combination.encode(structure, num_bq, expansion)
-            fn = self._comb_cache[key] = functools.partial(cuda_combination.combination, program)
+        with self._lock:
+            fn = self._comb_cache.get(key)
+            if fn is None:
+                program = cuda_combination.encode(structure, num_bq, expansion)
+                fn = self._comb_cache[key] = functools.partial(cuda_combination.combination, program)
         return fn

@@ -44,8 +44,8 @@ _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "stark_ntt_pass1": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
-    "stark_ntt_pass2": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "stark_ntt_pass1": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "stark_ntt_pass2": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P],
     "stark_ntt_occupancy": [_I, _I, _I, _I, _PI, _PI, _PI, _PI],
     "stark_merkle_leaves": [_P, _P, _I64, _P],
     "stark_merkle_leaves_mont": [_P, _P, _I64, _P],
@@ -99,6 +99,7 @@ LAUNCHES: Dict[str, int] = {
 LAUNCHES_BY_SIZE: Dict[int, Dict[str, int]] = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launches from several threads (Stark.precompile's pool)
 _lib = None
 #: facts of the build that loaded the library (path, seconds, ptxas report)
 build_info: Dict[str, object] = {}
@@ -191,9 +192,10 @@ def launch(kernel: str, entry: str, *args, device: torch.device, size: int) -> N
         err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
-    LAUNCHES[kernel] += 1
-    by_kernel = LAUNCHES_BY_SIZE.setdefault(size, {})
-    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1
+        by_kernel = LAUNCHES_BY_SIZE.setdefault(size, {})
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
 
 
 def ptr(t) -> int:

@@ -15,6 +15,7 @@ every size and the only one below 2^13.
 
 from __future__ import annotations
 
+import threading
 from functools import lru_cache
 
 import torch
@@ -49,15 +50,17 @@ class NTTPlan:
             length *= 2
         self.n_inv_mont = mont_tensor([pow(n, -1, P)], self.device)  # (8, 1)
         self._offset_cache = {}
+        self._lock = threading.Lock()
 
     def _offset_tables(self, offset: int):
         key = offset % P
-        if key not in self._offset_cache:
-            self._offset_cache[key] = (
-                mont_tensor(_power_table(key, self.n), self.device),
-                mont_tensor(_power_table(pow(key, -1, P), self.n), self.device),
-            )
-        return self._offset_cache[key]
+        with self._lock:  # threads sharing the plan build each entry once
+            if key not in self._offset_cache:
+                self._offset_cache[key] = (
+                    mont_tensor(_power_table(key, self.n), self.device),
+                    mont_tensor(_power_table(pow(key, -1, P), self.n), self.device),
+                )
+            return self._offset_cache[key]
 
     def op_tables(self, inverse: bool, offset: int = 1):
         """Everything :meth:`apply` reads for one transform."""
@@ -120,6 +123,11 @@ def _plan(n: int, device: str) -> NTTPlan:
     return NTTPlan(n, device)
 
 
+_PLAN_LOCK = threading.Lock()
+
+
 def get_plan(n: int, device) -> NTTPlan:
-    """Plan for size n on ``device``, cached per (n, device)."""
-    return _plan(n, str(torch.device(device)))
+    """Plan for size n on ``device``, cached per (n, device) and built
+    once however many threads ask for it."""
+    with _PLAN_LOCK:
+        return _plan(n, str(torch.device(device)))

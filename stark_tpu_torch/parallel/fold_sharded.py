@@ -21,6 +21,7 @@ a K9 power table, joined by K10's row-by-column form
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -58,17 +59,19 @@ class ShardedFold:
         if r % self.d:
             raise ValueError(f"{r} rows do not split over {self.d} shards")
         self._tables: Dict[tuple, torch.Tensor] = {}
+        self._lock = threading.Lock()
 
     def inv_table(self, s: int, offset: int, omega: int, c_half: int) -> torch.Tensor:
         """Shard s's (8, c_half * R/D) table of (offset * omega^k)^-1."""
         key = (s, offset % P, omega % P, c_half)
-        tab = self._tables.get(key)
-        if tab is None:
-            rl = self.r // self.d
-            inv_omega = pow(omega, -1, P)
-            start = pow(offset, -1, P) * pow(inv_omega, s * rl, P) % P
-            tab = self._tables[key] = separable_table(pow(inv_omega, self.r, P), c_half, inv_omega, start, rl,
-                                                      self.mesh[s])
+        with self._lock:  # threads sharing the fold build each table once
+            tab = self._tables.get(key)
+            if tab is None:
+                rl = self.r // self.d
+                inv_omega = pow(omega, -1, P)
+                start = pow(offset, -1, P) * pow(inv_omega, s * rl, P) % P
+                tab = self._tables[key] = separable_table(pow(inv_omega, self.r, P), c_half, inv_omega, start, rl,
+                                                          self.mesh[s])
         return tab
 
     def __call__(self, codeword: ShardedArray, alpha: int, offset: int, omega: int) -> ShardedArray:

@@ -40,14 +40,16 @@ its epilogue, the exchange back, K3 along k1 with 1/n and a coset's undo
 as its epilogue; it returns the natural coefficient matrix column-sharded
 ``(8, R, C/D)``, ``[j1, j2_local]``.
 
-On the card the passes run in clusters of 8 blocks, one block a
-transform, so a shard's batch (C/D columns for K2, R/D rows for K3) must
-be at least 8: a CUDA mesh refuses smaller shards with ``ValueError``
-(n >= 64 D^2, e.g. 4096 at D = 8).  The CPU path has no such limit.
+On the card the passes run one block a transform, in clusters of 8
+blocks, or of as many as a shard's batch has (C/D columns for K2, R/D
+rows for K3) where that is fewer: a mesh of D shards takes every n from
+D^2 up, as the JAX module does (e.g. 64 at D = 8).  A pass is at most
+``MAX_PASS_LEN`` points long on the card.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -55,8 +57,7 @@ import torch
 
 from ..field import FieldElement
 from ..params import NUM_LIMBS, P
-from ..ops.cuda_ntt import (CLUSTER_BLOCKS, MAX_PASS_LEN, _pack_stage_twiddles, coset_tables, ntt_pass1, ntt_pass2,
-                            power_grid)
+from ..ops.cuda_ntt import MAX_PASS_LEN, _pack_stage_twiddles, coset_tables, ntt_pass1, ntt_pass2, power_grid
 from ..ops.limbs import from_numpy, mont_tensor
 from .mesh import Mesh, ShardedArray, exchange, normalize, owned, shard_columns
 
@@ -85,20 +86,19 @@ class ShardedNTT:
         self.d = len(self.mesh)
         self.R, self.C = _split(n, self.d)
         self.omega = FieldElement.primitive_nth_root(n).value
-        rl, cl = self.R // self.d, self.C // self.d
-        if any(dev.type == "cuda" for _, dev in owned(self.mesh)) and (
-                min(rl, cl) < CLUSTER_BLOCKS or max(self.R, self.C) > MAX_PASS_LEN):
-            raise ValueError(
-                f"a {n}-point transform over {self.d} shards gives shards of {cl} columns and {rl} rows; the "
-                f"CUDA passes take at least {CLUSTER_BLOCKS} of each (one cluster) and R, C <= {MAX_PASS_LEN}")
+        if any(dev.type == "cuda" for _, dev in owned(self.mesh)) and max(self.R, self.C) > MAX_PASS_LEN:
+            raise ValueError(f"a {n}-point transform has passes of {self.R} and {self.C} points; the CUDA passes "
+                             f"take at most {MAX_PASS_LEN}")
         self._tables: Dict[tuple, object] = {}
+        self._lock = threading.Lock()
 
     # -- tables (built on first use, kept per shard or per device) ---------
 
     def _cached(self, key, build):
-        tab = self._tables.get(key)
-        if tab is None:
-            tab = self._tables[key] = build()
+        with self._lock:  # threads sharing the transform build each table once
+            tab = self._tables.get(key)
+            if tab is None:
+                tab = self._tables[key] = build()
         return tab
 
     def _twiddles(self, length: int, inverse: bool, dev: torch.device) -> torch.Tensor:

@@ -49,6 +49,7 @@ byte-identical to the host and one-device provers.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -89,6 +90,7 @@ class ShardedProverCore:
         self._inv_tables: Dict[Tuple[int, int, int], torch.Tensor] = {}
         self._shift_tables: Dict[Tuple[int, int], ShardedArray] = {}
         self._comb_cache: Dict[tuple, object] = {}
+        self._lock = threading.RLock()  # as DeviceProverCore's: each table built once
 
     # -- RS extension ------------------------------------------------------
 
@@ -216,9 +218,10 @@ class ShardedProverCore:
 
     def _tail_inv_table(self, offset: int, omega: int, half: int) -> torch.Tensor:
         key = (offset % P, omega % P, half)
-        tab = self._inv_tables.get(key)
-        if tab is None:
-            tab = self._inv_tables[key] = power_table(pow(omega, -1, P), pow(offset, -1, P), half, self.device)
+        with self._lock:
+            tab = self._inv_tables.get(key)
+            if tab is None:
+                tab = self._inv_tables[key] = power_table(pow(omega, -1, P), pow(offset, -1, P), half, self.device)
         return tab
 
     def fold(self, dcw: DeviceCodeword, alpha: int, offset: int, omega: int) -> DeviceCodeword:
@@ -239,16 +242,18 @@ class ShardedProverCore:
         omega^(shift*R*k2) times col[k1] = offset^shift * omega^(shift*k1),
         materialized a shard (the combination kernel reads codewords)."""
         key = (shift, omega % P)
-        tab = self._shift_tables.get(key)
-        if tab is None:
-            rl = self.R // self.d
-            step = pow(omega, shift, P)
-            row_base = pow(omega, shift * self.R % (P - 1), P)
-            shards = []
-            for s, dev in owned(self.mesh):
-                start = pow(self.offset, shift, P) * pow(step, s * rl, P) % P
-                shards.append(separable_table(row_base, self.C, step, start, rl, dev).reshape(NUM_LIMBS, self.C, rl))
-            tab = self._shift_tables[key] = ShardedArray(shards, self.mesh)
+        with self._lock:
+            tab = self._shift_tables.get(key)
+            if tab is None:
+                rl = self.R // self.d
+                step = pow(omega, shift, P)
+                row_base = pow(omega, shift * self.R % (P - 1), P)
+                shards = []
+                for s, dev in owned(self.mesh):
+                    start = pow(self.offset, shift, P) * pow(step, s * rl, P) % P
+                    shards.append(separable_table(row_base, self.C, step, start, rl, dev)
+                                  .reshape(NUM_LIMBS, self.C, rl))
+                tab = self._shift_tables[key] = ShardedArray(shards, self.mesh)
         return tab
 
     # -- batch inversion -------------------------------------------------------
@@ -290,10 +295,15 @@ class ShardedProverCore:
         the next-row operand; returns (combination, the transition
         quotients as a list of sharded codewords)."""
         key = (structure, num_bq, expansion)
-        fn = self._comb_cache.get(key)
-        if fn is not None:
-            return fn
-        program = cuda_combination.encode(structure, num_bq, expansion)
+        with self._lock:
+            fn = self._comb_cache.get(key)
+            if fn is None:
+                fn = self._comb_cache[key] = self._combination(cuda_combination.encode(structure, num_bq, expansion),
+                                                               structure, expansion)
+        return fn
+
+    def _combination(self, program, structure: tuple, expansion: int):
+        """The combination function of one encoded program."""
 
         def comb_fn(trace_cws, group_cws, tz_invs, rand_cw, bq_cws, weights, tq_shift_tabs, bq_shift_tabs):
             nexts = [self.next_rows(cw, expansion) for cw in trace_cws]
@@ -312,7 +322,6 @@ class ShardedProverCore:
                     tqs[c].append(stack[c].reshape(shape))
             return ShardedArray(combs, self.mesh), [ShardedArray(t, self.mesh) for t in tqs]
 
-        self._comb_cache[key] = comb_fn
         return comb_fn
 
 
@@ -327,12 +336,14 @@ class ShardedBackend(TorchBackend):
         super().__init__(home(self.mesh))
         self.device_prover_min = device_prover_min
         self._core_cache: Dict[Tuple[int, int], ShardedProverCore] = {}
+        self._lock = threading.Lock()
 
     def make_prover_core(self, n: int, offset: int) -> ShardedProverCore:
         # cached per backend (one mesh): Stark instances sharing a FRI
         # domain share the core's tables
         key = (n, offset % P)
-        core = self._core_cache.get(key)
-        if core is None:
-            core = self._core_cache[key] = ShardedProverCore(n, offset, self.mesh)
+        with self._lock:
+            core = self._core_cache.get(key)
+            if core is None:
+                core = self._core_cache[key] = ShardedProverCore(n, offset, self.mesh)
         return core

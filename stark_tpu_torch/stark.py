@@ -95,6 +95,24 @@ def _shared_table(shape_key: tuple, name: str) -> dict:
         return entry.setdefault(name, {})
 
 
+def _shared_entry(shape_key: tuple, name: str, key, build):
+    """``_shared_table(shape_key, name)[key]``, built by ``build()`` once:
+    threads that miss the same entry wait on its lock (kept with the
+    statement's tables, so evicted with them) while one of them builds
+    it; other entries build meanwhile."""
+    cache = _shared_table(shape_key, name)
+    value = cache.get(key)
+    if value is None:
+        locks = _shared_table(shape_key, "_locks")
+        with _SHARED_TABLES_LOCK:
+            lock = locks.setdefault((name, key), threading.Lock())
+        with lock:
+            value = cache.get(key)
+            if value is None:
+                value = cache[key] = build()
+    return value
+
+
 def _batch_inverse(values: Sequence[int]) -> List[int]:
     """Batch modular inversion via Montgomery's running-product trick
     (one pow(-1) for the whole batch).  All values must be nonzero."""
@@ -304,23 +322,21 @@ class Stark:
         repeat verifies at large trace lengths)."""
         return self._tz_poly(self._exemption_list(constraint_index))
 
+    def _shape_key(self) -> tuple:
+        return (
+            self.fri_domain_length,
+            self.generator.value,
+            self.omicron.value,
+            self.original_trace_length,
+        )
+
     def _tables(self, name: str) -> dict:
         """Process-wide trace-independent table cache for this statement
         shape (see :data:`_SHARED_TABLES`)."""
-        return _shared_table(
-            (
-                self.fri_domain_length,
-                self.generator.value,
-                self.omicron.value,
-                self.original_trace_length,
-            ),
-            name,
-        )
+        return _shared_table(self._shape_key(), name)
 
     def _tz_poly(self, exemptions: Tuple[int, ...]) -> Polynomial:
-        cache = self._tables("tz_poly")
-        tz = cache.get(exemptions)
-        if tz is None:
+        def build():
             skip = set(exemptions)
             domain = [
                 p
@@ -329,8 +345,9 @@ class Stark:
                 )
                 if i not in skip
             ]
-            tz = cache[exemptions] = Polynomial.zeroifier_domain(domain)
-        return tz
+            return Polynomial.zeroifier_domain(domain)
+
+        return _shared_entry(self._shape_key(), "tz_poly", exemptions, build)
 
     def transition_zeroifier_degree(self, constraint_index: int = 0) -> int:
         """Degree of the transition zeroifier (trace_length - 1 minus
@@ -1038,6 +1055,33 @@ class Stark:
     # device-resident prover (codewords stay on the torch device)
     # ------------------------------------------------------------------
 
+    def precompile(
+        self,
+        transition_constraints: Sequence[MPolynomial],
+        trace_length: int = None,
+        threads: int = 6,
+        boundary: Sequence[BoundaryCondition] = None,
+    ):
+        """Warm the device prover before the first prove: build the kernel
+        library, the prover core and every table the prove caches for this
+        statement, and launch each kernel once at the prove's shapes, on a
+        thread pool (see :mod:`stark_tpu_torch.ops.precompile`).  No-op
+        (returns None) when the device pipeline is not in use; otherwise
+        returns job name -> seconds, and raises once the pool drains if a
+        job failed.  ``boundary`` (the statement's boundary conditions:
+        their cycles and registers are read, not their values) lets it
+        also build the boundary quotients' x^shift tables; the models pass
+        theirs."""
+        if not self._use_device_pipeline():
+            return None
+        from .ops.precompile import precompile_stark
+
+        if trace_length is None:
+            trace_length = self.original_trace_length
+        return precompile_stark(
+            self, transition_constraints, trace_length, threads, boundary=boundary
+        )
+
     def _use_device_pipeline(self) -> bool:
         """Whether prove() runs the device-resident pipeline: a backend is
         attached, the evaluation-space algorithm is selected, and the FRI
@@ -1061,15 +1105,14 @@ class Stark:
         c_m univariate (round-constant interpolants concentrate there);
         each c_m is RS-extended once and cached per AIR content (same
         grouping as the host evaluation path)."""
-        cache = self._tables("device_air_groups")
         # keyed by the core OBJECT too: plain and sharded cores produce
         # different array layouts for the same statement shape (and the
         # reference in the key keeps the core alive, so ids can't alias)
         key = (core,) + tuple(
             tc.content_key() for tc in transition_constraints
         )
-        entry = cache.get(key)
-        if entry is None:
+
+        def build():
             group_cws = []
             structure = []
             for tc in transition_constraints:
@@ -1090,18 +1133,17 @@ class Stark:
                     per_constraint.append((tail, len(group_cws)))
                     group_cws.append(core.extend(coeffs))
                 structure.append(tuple(per_constraint))
-            entry = cache[key] = (tuple(group_cws), tuple(structure))
-        return entry
+            return tuple(group_cws), tuple(structure)
+
+        return _shared_entry(self._shape_key(), "device_air_groups", key, build)
 
     def _device_tz_inv(self, core, exemptions: Tuple[int, ...] = ()):
         """Inverted transition-zeroifier codeword (trace-independent),
         cached on device per exemption set."""
-        cache = self._tables("device_tz_inv")
-        tz_inv = cache.get((core, exemptions))
-        if tz_inv is None:
-            tz_cw = core.extend(self._tz_poly(exemptions).coeffs)
-            tz_inv = cache[(core, exemptions)] = core.inverse(tz_cw)
-        return tz_inv
+        return _shared_entry(
+            self._shape_key(), "device_tz_inv", (core, exemptions),
+            lambda: core.inverse(core.extend(self._tz_poly(exemptions).coeffs)),
+        )
 
     def _combination_device(
         self,
@@ -1115,6 +1157,7 @@ class Stark:
         tq_bounds,
         bq_bounds,
         prof,
+        check_degrees: bool = True,
     ):
         """Evaluation-space combination as one device executable (K11 on
         the card); returns a DeviceCodeword.  Same algebra as
@@ -1178,7 +1221,7 @@ class Stark:
         # stark.rs:379-380
         with region("degree_probe"):
             tq_degrees = core.degree_probe(tq_stack)
-        if tq_degrees != list(tq_bounds):
+        if check_degrees and tq_degrees != list(tq_bounds):
             raise ValueError(
                 f"transition quotient degrees {tq_degrees} do not match "
                 f"degree bounds {list(tq_bounds)}"
@@ -1190,14 +1233,21 @@ class Stark:
         trace: Sequence[Sequence[FieldElement]],
         transition_constraints: Sequence[MPolynomial],
         boundary: Sequence[BoundaryCondition],
+        dry_run: bool = False,
     ) -> bytes:
         """Device-resident prove: same pipeline, randomness consumption and
         transcript bytes as the host path (pinned by tests), with every
         full-length codeword living on the device from RS-extension to the
         FRI folds.  Host crossings: one digit matrix per committed codeword
-        (Merkle leaves are host/native-C work) and the opened leaves."""
+        (Merkle leaves are host/native-C work) and the opened leaves.
+
+        ``dry_run`` (``precompile``'s last job): zero bytes in place of the
+        rng, which is not read, and no check that the transition quotients
+        meet their degree bounds, so that a trace of zeros runs every
+        stage; its bytes are no proof."""
         from .utils.profiling import Timer
 
+        rng = (lambda k: bytes(k)) if dry_run else self.rng
         prof = Timer()
         self.last_profile = prof
         proof_stream = ProofStream()
@@ -1207,7 +1257,7 @@ class Stark:
             for _ in range(self.num_randomizers):
                 trace.append(
                     [
-                        FieldElement.sample(self.rng(17))
+                        FieldElement.sample(rng(17))
                         for _ in range(self.num_registers)
                     ]
                 )
@@ -1223,7 +1273,7 @@ class Stark:
 
             max_degree = self.combination_degree(transition_constraints)
             with prof.region("randomizer_poly/draw"):
-                rand_bytes = draw_concat(self.rng, max_degree + 1, 17)
+                rand_bytes = draw_concat(rng, max_degree + 1, 17)
             if hasattr(core, "extend_codeword_be17"):
                 # byte->limb unpack and mod-p reduce on the device
                 with prof.region("randomizer_poly/extend"):
@@ -1368,6 +1418,7 @@ class Stark:
                 tq_bounds,
                 bq_bounds,
                 prof=prof,
+                check_degrees=not dry_run,
             )
 
         with prof.region("fri"):

@@ -66,10 +66,41 @@ def test_ntt_passes_match_plain(cuda, logn, inverse, offset):
 def test_ntt_kernels_refuse_small_transforms(cuda):
     from stark_tpu_torch.ops import cuda_ntt
 
-    x = torch.zeros((8, 4, 8), dtype=torch.int32, device=cuda)  # R = 4: less than a cluster's 8 rows
-    tw = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    x = torch.zeros((8, 1, 8), dtype=torch.int32, device=cuda)  # R = 1: a pass of one point
+    tw = torch.zeros((8, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         cuda_ntt.ntt_pass1(x, tw, x)
+    with pytest.raises(ValueError):
+        cuda_ntt.CudaNTT(1 << 5, cuda)  # the one-device plan starts at R = C = 8
+
+
+@pytest.mark.parametrize("logn", [6, 8, 10])
+def test_sharded_ntt_with_shards_narrower_than_a_cluster_matches_the_one_device_plan(cuda, logn):
+    """2^6, 2^8 and 2^10 over 8 shards on one card give shards 1, 2 and 4
+    wide, whose K2/K3 run in clusters of as many blocks: forward, inverse,
+    and the inverse from the four-step layout with a coset, limb for limb
+    against the one-device plan (8-wide clusters)."""
+    from stark_tpu_torch.ops import cuda_ntt, kernels
+    from stark_tpu_torch.parallel import ShardedNTT, make_mesh
+
+    n = 1 << logn
+    sntt = ShardedNTT(n, make_mesh(8, [cuda]))
+    width = sntt.C // 8
+    assert width == sntt.R // 8 == 1 << (logn // 2 - 3)
+    assert cuda_ntt.launch_shape(sntt.R.bit_length() - 1, width.bit_length() - 1).cluster == width
+    plan = cuda_ntt.get_cuda_plan(n, cuda)
+    x = _mont(n, logn, cuda)
+    mat = sntt.shard_input(sntt.to_matrix(x))
+    kernels.reset_launch_counts()
+    assert torch.equal(sntt.from_output_matrix(sntt.forward(mat)), plan.forward(x))
+    passes = {k: v for k, v in kernels.LAUNCHES_BY_SIZE[n // 8].items() if k.startswith("ntt_pass")}
+    assert passes == {"ntt_pass1": 8, "ntt_pass2": 8}  # a launch a shard and pass
+    assert torch.equal(sntt.from_output_matrix(sntt.inverse(mat)), plan.inverse(x))
+    coset = sntt.forward(mat, GENERATOR)
+    assert torch.equal(sntt.from_output_matrix(coset), plan.coset_forward(x, GENERATOR))
+    back = sntt.inverse_from_fourstep(coset, GENERATOR)
+    assert torch.equal(back.gather().reshape(8, n), x)
+    assert torch.equal(back.gather().reshape(8, n), plan.coset_inverse(plan.coset_forward(x, GENERATOR), GENERATOR))
 
 
 @pytest.mark.parametrize("w", [2, 6, 4096, 1 << 16])
@@ -837,6 +868,72 @@ def test_sharded_fib_1000_on_an_8_shard_mesh_equals_the_one_device_proof(cuda):
     for name in ("ntt_pass1", "ntt_pass2", "fri_fold", "mont_outer", "mont_inv", "mont_digits"):
         assert kernels.LAUNCHES[name] > 0, name
     assert model.verify(a, b, got[0], got[1])
+
+
+def test_sharded_chain_4_on_an_8_shard_mesh_equals_the_host_proof(cuda):
+    """chain-4's 1024-point domain over 8 shards on one card: shards 4
+    columns wide (K2/K3 in clusters of 4), the proof the host prover's
+    bytes, K11's next-row form once a shard."""
+    from stark_tpu_torch.models.rescue_chain import RescueChainStark
+    from stark_tpu_torch.ops import guard, kernels
+    from stark_tpu_torch.parallel import ShardedBackend, make_mesh
+
+    x = FieldElement(77)
+    want = RescueChainStark(4, device=None, rng=DeterministicRandom(21)).prove(x)
+    model = RescueChainStark(4, backend=ShardedBackend(make_mesh(8, [cuda]), device_prover_min=1024),
+                             rng=DeterministicRandom(21))
+    assert model.stark._use_device_pipeline() and model.stark.fri_domain_length == 1024
+    kernels.reset_launch_counts()
+    with guard.count_plain_calls() as plain:
+        got = model.prove(x)
+    assert sum(plain.values()) == 0, dict(plain)
+    assert got == want
+    assert kernels.LAUNCHES["combination_next"] == 8 and kernels.LAUNCHES["combination"] == 0
+    assert kernels.LAUNCHES_BY_SIZE[1024 // 8]["ntt_pass1"] >= 16
+
+
+def test_precompile_launches_every_kernel_of_the_prove_and_the_prove_fills_no_cache(cuda, monkeypatch):
+    """fib-1000 (8192 points) on the card: after ``precompile()`` on fresh
+    caches the prove launches no kernel the warm-up did not, at no NTT size
+    it did not run, adds no entry to any cache of the statement, the core
+    or a plan, misses no plan lookup, and proves the host prover's bytes."""
+    from stark_tpu_torch import stark as port_stark
+    from stark_tpu_torch.models.fibonacci import FibonacciStark
+    from stark_tpu_torch.ops import cuda_field, cuda_ntt, device_prover, kernels
+
+    monkeypatch.setattr(port_stark, "_SHARED_TABLES", {})
+    monkeypatch.setattr(device_prover, "_CORE_CACHE", {})
+    monkeypatch.setattr(device_prover, "_B0_TABLES", {})
+    monkeypatch.setattr(cuda_field, "_COLUMNS", {})
+    a, b = FieldElement(3), FieldElement(7)
+    want = FibonacciStark(1000, device=None, rng=DeterministicRandom(11)).prove(a, b)
+    model = FibonacciStark(1000, device=cuda, rng=DeterministicRandom(11))
+    kernels.reset_launch_counts()
+    jobs = model.precompile()
+    assert jobs and all(v >= 0 for v in jobs.values())
+    warmed = {k for k, v in kernels.LAUNCHES.items() if v}
+    warmed_ntt = {n for n, v in kernels.LAUNCHES_BY_SIZE.items() if "ntt_pass1" in v}
+    core = model.stark._device_core()
+
+    def caches():
+        import gc
+
+        plans = {id(p): set(p._row_col_cache) for p in gc.get_objects() if type(p) is cuda_ntt.CudaNTT}
+        return ({shape: {name: set(t) for name, t in entry.items()}
+                 for shape, entry in port_stark._SHARED_TABLES.items()},
+                set(device_prover._CORE_CACHE), set(device_prover._B0_TABLES), set(cuda_field._COLUMNS),
+                set(core._inv_tables), set(core._shift_tables), set(core._comb_cache), plans,
+                cuda_ntt._cuda_plan.cache_info().misses)
+
+    before = caches()
+    kernels.reset_launch_counts()
+    got = model.prove(a, b)
+    proved = {k for k, v in kernels.LAUNCHES.items() if v}
+    proved_ntt = {n for n, v in kernels.LAUNCHES_BY_SIZE.items() if "ntt_pass1" in v}
+    assert got == want
+    assert proved <= warmed, proved - warmed
+    assert proved_ntt <= warmed_ntt, proved_ntt - warmed_ntt
+    assert caches() == before
 
 
 def test_service_round_trip_on_the_card(cuda):

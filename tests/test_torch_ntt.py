@@ -177,13 +177,14 @@ def test_launch_shape_fills_the_card(logn, which):
     log_r = logn // 2
     log_l, log_b = (log_r, logn - log_r) if which == "pass1" else (logn - log_r, log_r)
     L, batch = 1 << log_l, 1 << log_b
-    threads, smem = cuda_ntt.launch_shape(log_l, log_b)
+    threads, smem, cluster, rows = cuda_ntt.launch_shape(log_l, log_b)
     blocks = batch
     assert threads % 32 == 0 and 32 <= threads <= min(1024, cuda_ntt._MAX_THREADS)
     assert smem in (L * 16, 2 * L * 16) and smem <= 232_448
     if logn >= 17:
         assert blocks >= 256
     assert blocks >= batch // min(32, 8192 // L, batch)
+    assert cluster == cuda_ntt.CLUSTER_BLOCKS and rows * cluster == L
     assert blocks % cuda_ntt.CLUSTER_BLOCKS == 0 and L % cuda_ntt.CLUSTER_BLOCKS == 0
 
 

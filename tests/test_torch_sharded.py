@@ -44,6 +44,7 @@ from stark_tpu_torch.models.fibonacci import FibonacciStark
 from stark_tpu_torch.models.rescue_chain import RescueChainStark
 from stark_tpu_torch.ops import cuda_combination as cc
 from stark_tpu_torch.ops import cuda_field as cf
+from stark_tpu_torch.ops import cuda_ntt
 from stark_tpu_torch.ops import device_merkle
 from stark_tpu_torch.ops.device_prover import DigitsView
 from stark_tpu_torch.ops.limbs import mont_tensor, pack, to_numpy, unpack
@@ -130,10 +131,17 @@ def test_split_validation():
     with pytest.raises(ValueError):
         _split(1 << 12, 6)  # the shard count must be a power of two
     assert _split(1 << 11, 8) == (32, 64) and _split(1 << 20, 8) == (1024, 1024)
-    # on the card a shard must hold a cluster (8) of columns and of rows
+    # on the card a shard narrower than a cluster of 8 runs in clusters of
+    # as many blocks as it has columns (K2) or rows (K3): 2^12, 2^10, 2^8
+    # and 2^6 over 8 shards give shards 8, 4, 2 and 1 wide
     cuda = [torch.device("cuda")] * 8
-    with pytest.raises(ValueError, match="cluster"):
-        ShardedNTT(1 << 10, cuda)
+    for logn, width in ((12, 8), (10, 4), (8, 2), (6, 1)):
+        sntt = ShardedNTT(1 << logn, cuda)
+        log_r, log_c = sntt.R.bit_length() - 1, sntt.C.bit_length() - 1
+        assert sntt.R // 8 == sntt.C // 8 == width
+        for log_l, log_b in ((log_r, log_c - 3), (log_c, log_r - 3)):  # K2, K3 on a shard
+            shape = cuda_ntt.launch_shape(log_l, log_b)
+            assert (shape.cluster, shape.rows) == (width, (1 << log_l) // width)
     assert ShardedNTT(1 << 12, cuda).R == 64
 
 
