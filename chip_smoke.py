@@ -434,13 +434,14 @@ def combination_bytes(args) -> int:
 
 def combination_split(profile) -> dict:
     """The combination stage of a prove and its sub-regions
-    (``Stark._combination_device``): wall seconds, and for the sub-regions
-    the device ms between the CUDA events around each."""
-    device = profile.device_totals()
+    (``Stark._combination_device``), wall seconds each.  Their device time
+    is read from a ``torch.profiler`` trace of the prove, in which a prove
+    opens the ranges ``stark.protocol.combination/<sub-region>``
+    (``stark_tpu_torch.utils.profiling``)."""
     split = {"stage_s": profile.totals.get("combination")}
     for name, wall in profile.totals.items():
         if name.startswith("combination/"):
-            split[name.split("/", 1)[1]] = {"wall_s": wall, "device_ms": device.get(name)}
+            split[name.split("/", 1)[1]] = {"wall_s": wall}
     return split
 
 

@@ -384,20 +384,22 @@ class Fri:
         b_indices = [idx + len(codewords[0]) // 2 for idx in top_level_indices]
         return a_indices + b_indices
 
-    def prove(self, codeword, proof_stream: ProofStream) -> List[int]:
+    def prove(self, codeword, proof_stream: ProofStream, prof=None) -> List[int]:
         """Full FRI proof; returns the top-level a+b indices
         (reference: fri.rs:212-254).  Accepts a plain codeword (list of
         residues / FieldElements) or a device-resident
-        :class:`stark_tpu_torch.ops.device_prover.DeviceCodeword`."""
+        :class:`stark_tpu_torch.ops.device_prover.DeviceCodeword`, whose
+        proof records its phases as ``fri/...`` regions of ``prof`` (the
+        prove's :class:`~stark_tpu_torch.utils.profiling.Timer`)."""
         if hasattr(codeword, "mont"):
-            return self._prove_device(codeword, proof_stream)
+            return self._prove_device(codeword, proof_stream, prof)
         codeword = [
             c.value if isinstance(c, FieldElement) else c % P for c in codeword
         ]
         codewords, trees = self.commit(codeword, proof_stream)
         return self._query_phase(codewords, trees, proof_stream)
 
-    def _prove_device(self, dcw, proof_stream: ProofStream) -> List[int]:
+    def _prove_device(self, dcw, proof_stream: ProofStream, prof=None) -> List[int]:
         """FRI proof from a device-resident codeword.  While codewords are
         device-tree sized, the rounds run as the fused commit cascade
         (:meth:`~stark_tpu_torch.ops.device_prover.DeviceProverCore.fri_cascade`):
@@ -407,13 +409,19 @@ class Fri:
         than a device tree the rest of the cascade runs on the host from
         ONE fetch.  Transcripts are byte-identical to :meth:`prove` on the
         gathered codeword.  ``last_fused_rounds`` records how many rounds
-        the cascade took."""
+        the cascade took.  ``prof`` gets the regions ``fri/cascade`` (the
+        cascade's dispatch), ``fri/root_fetch`` (its one fetch: the host
+        waits on the card), ``fri/rounds`` (the rounds past the cascade)
+        and ``fri/query``."""
         from .ops import device_merkle
         from .ops.device_merkle import TAIL_WIDTH, DeviceMerkleTree
         from .ops.device_prover import DeviceCodeword, DigitsView
         from .ops.limbs import to_numpy
         from .serialization import bincode_string_vec
+        from .utils.profiling import Timer
 
+        if prof is None:
+            prof = Timer("protocol")
         device_floor = max(device_merkle.DEVICE_TREE_MIN, 2 * TAIL_WIDTH)
         core = dcw.core
         omega = self.omega.value % P
@@ -436,20 +444,24 @@ class Fri:
             k = 0
         self.last_fused_rounds = k
         if k:
-            w, o = omega, offset
-            for r in range(k):
-                if pow(w, (n0 >> r) - 1, P) != pow(w, -1, P):
-                    raise ValueError(
-                        "error in commit: omega does not have the "
-                        "right order"
-                    )
-                w, o = w * w % P, o * o % P
-            body = bincode_string_vec(proof_stream.objects)[8:]
-            per_round, roots_arr, final_mont = core.fri_cascade(
-                cur.mont, body, len(proof_stream.objects),
-                offset, omega, k,
-            )
-            roots = to_numpy(roots_arr)  # the cascade's one host fetch
+            with prof.region("fri/cascade"):
+                w, o = omega, offset
+                for r in range(k):
+                    if pow(w, (n0 >> r) - 1, P) != pow(w, -1, P):
+                        raise ValueError(
+                            "error in commit: omega does not have the "
+                            "right order"
+                        )
+                    w, o = w * w % P, o * o % P
+                body = bincode_string_vec(proof_stream.objects)[8:]
+                per_round, roots_arr, final_mont = core.fri_cascade(
+                    cur.mont, body, len(proof_stream.objects),
+                    offset, omega, k,
+                )
+            with prof.region("fri/root_fetch"):
+                roots = to_numpy(roots_arr)  # the cascade's one host fetch
+
+        with prof.region("fri/rounds"):
             for r in range(k):
                 root = np.ascontiguousarray(roots[r].astype("<u4")).tobytes()
                 mont_r, levels_r = per_round[r]
@@ -458,44 +470,46 @@ class Fri:
                 )
                 proof_stream.push(root.hex())
                 views.append(DeviceCodeword(mont_r, core).view())
-            cur = DeviceCodeword(final_mont, core)
-            omega, offset = w, o
+            if k:
+                cur = DeviceCodeword(final_mont, core)
+                omega, offset = w, o
 
-        for r in range(k, rounds):
-            n = len(cur)
-            if pow(omega, n - 1, P) != pow(omega, -1, P):
-                raise ValueError(
-                    "error in commit: omega does not have the right order"
-                )
-            on_device = hasattr(cur, "mont")
-            if on_device and n < device_floor:
-                # one fetch; the tail stays a host digit matrix (numpy
-                # folds + native-C trees, no Python-int codewords)
-                cur = DigitsView(cur.digits)
-                on_device = False
-            if on_device:
-                tree = core.merkle_tree(cur)
-            else:
-                tree = MerkleTree.from_digits(cur.digits)
-            trees.append(tree)
-            proof_stream.push(tree.root.hex())
+            for r in range(k, rounds):
+                n = len(cur)
+                if pow(omega, n - 1, P) != pow(omega, -1, P):
+                    raise ValueError(
+                        "error in commit: omega does not have the right order"
+                    )
+                on_device = hasattr(cur, "mont")
+                if on_device and n < device_floor:
+                    # one fetch; the tail stays a host digit matrix (numpy
+                    # folds + native-C trees, no Python-int codewords)
+                    cur = DigitsView(cur.digits)
+                    on_device = False
+                if on_device:
+                    tree = core.merkle_tree(cur)
+                else:
+                    tree = MerkleTree.from_digits(cur.digits)
+                trees.append(tree)
+                proof_stream.push(tree.root.hex())
 
-            if r == rounds - 1:
-                break
+                if r == rounds - 1:
+                    break
 
-            alpha = FieldElement.sample(proof_stream.prover_fiat_shamir(32)).value
-            views.append(cur.view() if on_device else cur)
-            if on_device:
-                cur = core.fold(cur, alpha, offset, omega)
-            else:
-                cur = DigitsView(_fold_digits(cur.digits, alpha, offset, omega))
-            omega = omega * omega % P
-            offset = offset * offset % P
+                alpha = FieldElement.sample(proof_stream.prover_fiat_shamir(32)).value
+                views.append(cur.view() if on_device else cur)
+                if on_device:
+                    cur = core.fold(cur, alpha, offset, omega)
+                else:
+                    cur = DigitsView(_fold_digits(cur.digits, alpha, offset, omega))
+                omega = omega * omega % P
+                offset = offset * offset % P
 
-        last = cur.view() if hasattr(cur, "mont") else cur
-        proof_stream.push(json_field_element_vec(list(last)))
-        views.append(last)
-        return self._query_phase(views, trees, proof_stream)
+            last = cur.view() if hasattr(cur, "mont") else cur
+            proof_stream.push(json_field_element_vec(list(last)))
+            views.append(last)
+        with prof.region("fri/query"):
+            return self._query_phase(views, trees, proof_stream)
 
     # -- verifier ---------------------------------------------------------
 

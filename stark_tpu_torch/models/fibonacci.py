@@ -30,6 +30,7 @@ from ..mpoly import MPolynomial
 from ..ops.backend import TorchBackend
 from ..rng import RandomBytes, os_random_bytes
 from ..stark import BoundaryCondition, Stark
+from ..utils.profiling import prove_span, span
 
 
 class FibonacciAir:
@@ -115,10 +116,12 @@ class FibonacciStark:
     def prove(
         self, seed_a: FieldElement, seed_b: FieldElement
     ) -> Tuple[FieldElement, bytes]:
-        trace = self.air.trace(seed_a, seed_b)
-        result = trace[-1][0]
-        boundary = self.air.boundary_constraints(seed_a, seed_b, result)
-        proof = self.stark.prove(trace, self._constraints, boundary)
+        with prove_span():
+            with span("stark.entry.trace"):
+                trace = self.air.trace(seed_a, seed_b)
+            result = trace[-1][0]
+            boundary = self.air.boundary_constraints(seed_a, seed_b, result)
+            proof = self.stark.prove(trace, self._constraints, boundary)
         return result, proof
 
     def verify(

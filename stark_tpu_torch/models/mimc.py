@@ -46,6 +46,7 @@ from ..mpoly import MPolynomial
 from ..ops.backend import TorchBackend
 from ..rng import RandomBytes, os_random_bytes
 from ..stark import BoundaryCondition, Stark
+from ..utils.profiling import prove_span, span
 
 # default round key: a fixed nothing-up-my-sleeve field element (the
 # byte-fold reduction of the tag below; FieldElement.sample matches the
@@ -121,10 +122,12 @@ class MimcStark:
         self._constraints = self.air.transition_constraints()
 
     def prove(self, seed: FieldElement) -> Tuple[FieldElement, bytes]:
-        trace = self.air.trace(seed)
-        result = trace[-1][0]
-        boundary = self.air.boundary_constraints(seed, result)
-        proof = self.stark.prove(trace, self._constraints, boundary)
+        with prove_span():
+            with span("stark.entry.trace"):
+                trace = self.air.trace(seed)
+            result = trace[-1][0]
+            boundary = self.air.boundary_constraints(seed, result)
+            proof = self.stark.prove(trace, self._constraints, boundary)
         return result, proof
 
     def verify(

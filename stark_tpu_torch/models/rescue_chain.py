@@ -60,6 +60,7 @@ from ..poly import Polynomial
 from ..rescue_prime import RescuePrime
 from ..rng import RandomBytes, os_random_bytes
 from ..stark import BoundaryCondition, Stark
+from ..utils.profiling import Timer, prove_span, span
 
 SEGMENT_ROWS = RESCUE_N + 1  # 28 states per permutation
 
@@ -116,7 +117,8 @@ class RescueChainAir:
             # two-limb Montgomery C kernel (csrc/host/rescue.c): bit-identical
             # rows, far faster than the CPython big-int chain at L=4096
             # (the chain is sequential — device batching can't apply)
-            out = native.chain_trace(input_element.value, self.num_hashes)
+            with span("stark.entry.trace/witness"):
+                out = native.chain_trace(input_element.value, self.num_hashes)
             return [[FieldElement(a), FieldElement(b)] for a, b in out]
         rows: List[List[FieldElement]] = []
         h = input_element
@@ -165,9 +167,12 @@ class RescueChainAir:
             )
         return first, second
 
-    def transition_constraints(self, stark: Stark) -> List[MPolynomial]:
+    def transition_constraints(self, stark: Stark, prof: Timer) -> List[MPolynomial]:
         """[rescue_0, rescue_1, link_0, link_1] — pair with
-        :meth:`transition_exemptions`.
+        :meth:`transition_exemptions`.  The build's parts are regions of
+        ``prof``: ``periodic`` (the four round-constant interpolants),
+        ``square_cube`` (``poly_square_and_cube``) and ``assemble`` (the
+        rest: the ``MPolynomial`` arithmetic).
 
         rescue_i (reference semantics rescue_prime.rs:363-394):
 
@@ -182,37 +187,41 @@ class RescueChainAir:
         """
         rp = self.rp
         m = rp.m
-        first, second = self._periodic_constant_polys(stark)
+        with prof.region("periodic"):
+            first, second = self._periodic_constant_polys(stark)
         variables = MPolynomial.variables(1 + 2 * m)
         prev = variables[1 : 1 + m]
         nxt = variables[1 + m : 1 + 2 * m]
 
         constraints: List[MPolynomial] = []
         for i in range(m):
-            lhs = MPolynomial.constant(0)
-            for k in range(m):
-                lhs = lhs + MPolynomial.constant(rp.MDS[i][k]) * prev[k].pow(3)
-            lhs = lhs + MPolynomial.lift(first[i], 0)
+            with prof.region("assemble"):
+                lhs = MPolynomial.constant(0)
+                for k in range(m):
+                    lhs = lhs + MPolynomial.constant(rp.MDS[i][k]) * prev[k].pow(3)
+                lhs = lhs + MPolynomial.lift(first[i], 0)
 
-            a_lin = MPolynomial.constant(0)
-            d_poly = Polynomial.zero()
-            for k in range(m):
-                a_lin = a_lin + MPolynomial.constant(rp.MDS_inv[i][k]) * nxt[k]
-                d_poly = d_poly + second[k].scale(rp.MDS_inv[i][k])
-            sq_c, cu_c = poly_square_and_cube(d_poly.coeffs)
-            d_sq, d_cu = Polynomial(sq_c), Polynomial(cu_c)
+                a_lin = MPolynomial.constant(0)
+                d_poly = Polynomial.zero()
+                for k in range(m):
+                    a_lin = a_lin + MPolynomial.constant(rp.MDS_inv[i][k]) * nxt[k]
+                    d_poly = d_poly + second[k].scale(rp.MDS_inv[i][k])
+            with prof.region("square_cube"):
+                sq_c, cu_c = poly_square_and_cube(d_poly.coeffs)
+            with prof.region("assemble"):
+                d_sq, d_cu = Polynomial(sq_c), Polynomial(cu_c)
 
-            # (A - D)^3 = A^3 - 3 A^2 D + 3 A D^2 - D^3
-            rhs = a_lin.pow(3)
-            rhs = rhs - MPolynomial.constant(3) * a_lin.pow(2) * MPolynomial.lift(
-                d_poly, 0
-            )
-            rhs = rhs + MPolynomial.constant(3) * a_lin * MPolynomial.lift(
-                d_sq, 0
-            )
-            rhs = rhs - MPolynomial.lift(d_cu, 0)
+                # (A - D)^3 = A^3 - 3 A^2 D + 3 A D^2 - D^3
+                rhs = a_lin.pow(3)
+                rhs = rhs - MPolynomial.constant(3) * a_lin.pow(2) * MPolynomial.lift(
+                    d_poly, 0
+                )
+                rhs = rhs + MPolynomial.constant(3) * a_lin * MPolynomial.lift(
+                    d_sq, 0
+                )
+                rhs = rhs - MPolynomial.lift(d_cu, 0)
 
-            constraints.append(lhs - rhs)
+                constraints.append(lhs - rhs)
 
         # chain links: digest carries, capacity resets
         constraints.append(nxt[0] - prev[0])
@@ -237,6 +246,11 @@ class RescueChainAir:
 
 class RescueChainStark:
     """End-to-end pipeline for Rescue-Prime hash-chain proofs."""
+
+    #: the AIR build's regions (``periodic``, ``square_cube``,
+    #: ``assemble``), summed over the process's builds (:attr:`constraints`),
+    #: so that code without the model, as a benchmark's reader, finds them
+    air_profile = Timer("air")
 
     def __init__(
         self,
@@ -279,7 +293,9 @@ class RescueChainStark:
     def constraints(self) -> Sequence[MPolynomial]:
         """The AIR, built lazily (degree-T interpolants) and cached."""
         if self._constraints is None:
-            self._constraints = self.air.transition_constraints(self.stark)
+            self._constraints = self.air.transition_constraints(
+                self.stark, self.air_profile
+            )
         return self._constraints
 
     def precompile(self, threads: int = 6):
@@ -290,10 +306,12 @@ class RescueChainStark:
                                      boundary=self.air.boundary_constraints(FieldElement(0)))
 
     def prove(self, input_element: FieldElement) -> Tuple[FieldElement, bytes]:
-        trace = self.air.trace(input_element)
-        output = trace[-1][0]
-        boundary = self.air.boundary_constraints(output)
-        proof = self.stark.prove(trace, self.constraints, boundary)
+        with prove_span():
+            with span("stark.entry.trace"):
+                trace = self.air.trace(input_element)
+            output = trace[-1][0]
+            boundary = self.air.boundary_constraints(output)
+            proof = self.stark.prove(trace, self.constraints, boundary)
         return output, proof
 
     def verify(self, claimed_output: FieldElement, proof: bytes) -> bool:

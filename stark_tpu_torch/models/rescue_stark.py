@@ -32,6 +32,7 @@ from ..rescue_prime import RescuePrime
 from ..rng import RandomBytes, os_random_bytes
 from ..stark import Stark
 from ..utils import get_logger
+from ..utils.profiling import prove_span, span
 
 log = get_logger("stark_tpu_torch.models.rescue_stark")
 
@@ -69,10 +70,12 @@ class RescueStark:
 
     def prove(self, input_element: FieldElement) -> Tuple[FieldElement, bytes]:
         """Returns (hash output, proof bytes)."""
-        output = self.rescue.hash(input_element)
-        trace = self.rescue.trace(input_element)
-        boundary = self.rescue.boundary_constraints(output)
-        proof = self.stark.prove(trace, self._air, boundary)
+        with prove_span():
+            with span("stark.entry.trace"):
+                output = self.rescue.hash(input_element)
+                trace = self.rescue.trace(input_element)
+            boundary = self.rescue.boundary_constraints(output)
+            proof = self.stark.prove(trace, self._air, boundary)
         return output, proof
 
     def verify(self, claimed_output: FieldElement, proof: bytes) -> bool:

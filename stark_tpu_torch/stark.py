@@ -1166,12 +1166,12 @@ class Stark:
         :class:`~stark_tpu_torch.utils.profiling.Timer`) gets the
         sub-regions ``combination/air_groups``, ``/tz_inv``,
         ``/shift_tables``, ``/trace_extend``, ``/kernel`` and
-        ``/degree_probe``, each with the device time of what it queues."""
+        ``/degree_probe``."""
         from .ops.device_prover import DeviceCodeword
         from .ops.limbs import mont_tensor
 
         def region(name):
-            return prof.region(f"combination/{name}", core.device)
+            return prof.region(f"combination/{name}")
 
         omega = self.omega.value
         with region("air_groups"):
@@ -1248,10 +1248,11 @@ class Stark:
         from .utils.profiling import Timer
 
         rng = (lambda k: bytes(k)) if dry_run else self.rng
-        prof = Timer()
+        prof = Timer("protocol")
         self.last_profile = prof
         proof_stream = ProofStream()
-        trace = [list(row) for row in trace]
+        with prof.region("trace_copy"):
+            trace = [list(row) for row in trace]
 
         with prof.region("randomizer_rows"):
             for _ in range(self.num_randomizers):
@@ -1262,7 +1263,8 @@ class Stark:
                     ]
                 )
 
-        core = self._device_core()
+        with prof.region("core"):
+            core = self._device_core()
 
         # randomizer polynomial: drawn and dispatched first (rng order —
         # rows, then poly — and transcript push order are unchanged; only
@@ -1388,23 +1390,25 @@ class Stark:
                 self.expansion_factor,
             )
 
-        weights = self.sample_weights(
-            1
-            + 2 * len(transition_constraints)
-            + 2 * len(boundary_quotient_codewords),
-            proof_stream.prover_fiat_shamir(32),
-        )
-
-        tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
-        bq_bounds = self.boundary_quotient_degree_bounds(len(trace), boundary)
-        worst = max(tq_bounds + bq_bounds)
-        if worst > max_degree:
-            raise ValueError(
-                f"a quotient's degree bound ({worst}) exceeds the "
-                f"combination degree target ({max_degree}); this "
-                "configuration cannot produce a verifiable proof "
-                "(shrink the constraint degree or grow the domain)"
+        with prof.region("weights"):
+            weights = self.sample_weights(
+                1
+                + 2 * len(transition_constraints)
+                + 2 * len(boundary_quotient_codewords),
+                proof_stream.prover_fiat_shamir(32),
             )
+
+        with prof.region("degree_bounds"):
+            tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
+            bq_bounds = self.boundary_quotient_degree_bounds(len(trace), boundary)
+            worst = max(tq_bounds + bq_bounds)
+            if worst > max_degree:
+                raise ValueError(
+                    f"a quotient's degree bound ({worst}) exceeds the "
+                    f"combination degree target ({max_degree}); this "
+                    "configuration cannot produce a verifiable proof "
+                    "(shrink the constraint degree or grow the domain)"
+                )
 
         with prof.region("combination"):
             combined_codeword = self._combination_device(
@@ -1422,13 +1426,13 @@ class Stark:
             )
 
         with prof.region("fri"):
-            indices = self.fri.prove(combined_codeword, proof_stream)
-        indices.sort()
-
-        duplicated_indices = sorted(
-            indices
-            + [(i + self.expansion_factor) % self.fri.domain_length for i in indices]
-        )
+            indices = self.fri.prove(combined_codeword, proof_stream, prof)
+        with prof.region("indices"):
+            indices.sort()
+            duplicated_indices = sorted(
+                indices
+                + [(i + self.expansion_factor) % self.fri.domain_length for i in indices]
+            )
 
         with prof.region("openings"):
             # batch every device-side gather before the serialization
@@ -1489,7 +1493,8 @@ class Stark:
                         json_hash_path(randomizer_tree.open(i))
                     )
 
-        return proof_stream.serialize()
+        with prof.region("serialize"):
+            return proof_stream.serialize()
 
     def prove(
         self,
