@@ -2294,10 +2294,10 @@ def main() -> int:
                              f"launched the combination {warm_launches['combination']} times")
     warm_stages = {k: round(v, 4) for k, v in sorted(model.stark.last_profile.totals.items(), key=lambda kv: -kv[1])}
     # the part of the warm prove outside the prover's stages, and the host
-    # trace build (FibonacciAir.trace, before Stark.prove) it holds
+    # trace build (FibonacciAir.trace_limbs, before Stark.prove) it holds
     unstaged_s = warm_prove_s - sum(v for k, v in model.stark.last_profile.totals.items() if "/" not in k)
     t0 = time.perf_counter()
-    model.air.trace(a, b)
+    model.air.trace_limbs(a, b)
     trace_build_s = time.perf_counter() - t0
     say("prove", steps=steps, fri_domain=model.stark.fri_domain_length, prove_seconds=prove_s,
         warm_prove_seconds=warm_prove_s, verify_seconds=verify_s, proof_bytes=len(proof), fused_fri_rounds=fused,
@@ -2432,7 +2432,7 @@ def main() -> int:
         raise AssertionError("the chain's witness would come from the Python golden model, not the host library")
     x = FieldElement(CHAIN_INPUT)
     t0 = time.perf_counter()
-    chain.air.trace(x)
+    chain.air.trace_limbs(x)
     chain_witness_s = time.perf_counter() - t0
     Stark._interpolate_trace = refuse_host_interpolation
     try:

@@ -231,6 +231,31 @@ void fv_geom(u64 base_lo, u64 base_hi, u64 start_lo, u64 start_hi, u64 *out,
   }
 }
 
+/* The 16-bit limbs of v into column i of an (8, rows) limb block. */
+static inline void store_limbs(uint32_t *block, u64 rows, u64 i, fe v) {
+  for (int l = 0; l < 4; l++) {
+    block[l * rows + i] = (uint32_t)((v.lo >> (16 * l)) & 0xFFFF);
+    block[(l + 4) * rows + i] = (uint32_t)((v.hi >> (16 * l)) & 0xFFFF);
+  }
+}
+
+/* The Fibonacci trace (a, b) -> (a + b, a) mod p from the canonical
+ * seeds (a0, b0), rows = steps + 1, written as the prover's limb trace:
+ * out[(r * 8 + l) * rows + i] holds bits [16l, 16l + 16) of register r
+ * at row i (the (registers, 8, rows) uint32 layout of ops/limbs.py). */
+void fv_fib_trace_limbs(u64 a_lo, u64 a_hi, u64 b_lo, u64 b_hi, u64 steps,
+                        uint32_t *out) {
+  u64 rows = steps + 1;
+  fe a = {a_lo, a_hi}, b = {b_lo, b_hi};
+  for (u64 i = 0; i < rows; i++) {
+    store_limbs(out, rows, i, a);
+    store_limbs(out + 8 * rows, rows, i, b);
+    fe next = fe_add(a, b);
+    b = a;
+    a = next;
+  }
+}
+
 /* Batch inversion (Montgomery trick): plain residues in/out.  Zero
  * inputs are rejected by returning -1 (caller falls back). */
 int fv_batch_inverse(const u64 *a, u64 *out, u64 n) {

@@ -13,6 +13,10 @@ AIR: 2 registers, 2 transition constraints of degree 1 in the 5 variables
 Boundary: register values at cycle 0 (the seeds) and register 0 at the
 last cycle (the claimed result).
 
+A prove builds the trace in limb form (:meth:`FibonacciAir.trace_limbs`:
+the host C library's recurrence, or Python ints where it does not
+build), never as rows of :class:`FieldElement`.
+
 :class:`FibonacciStark` runs on the CUDA card unless the caller names
 another torch device ("cuda:1", "cpu"); ``device=None`` gives the host
 prover, with no backend.  ``backend=`` (the JAX models' keyword)
@@ -25,12 +29,26 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
+
 from ..field import FieldElement
 from ..mpoly import MPolynomial
 from ..ops.backend import TorchBackend
+from ..ops.limbs import pack, unpack
+from ..params import P
 from ..rng import RandomBytes, os_random_bytes
 from ..stark import BoundaryCondition, Stark
 from ..utils.profiling import prove_span, span
+
+
+def _native_fieldvec():
+    """The host library's field module, or None (it does not build or
+    load here -> the trace from Python ints)."""
+    try:
+        from ..native import fieldvec
+    except ImportError:
+        return None
+    return fieldvec
 
 
 class FibonacciAir:
@@ -53,6 +71,20 @@ class FibonacciAir:
             a, b = a + b, a
             rows.append([a, b])
         return rows
+
+    def trace_limbs(self, seed_a: FieldElement, seed_b: FieldElement) -> np.ndarray:
+        """The trace of :meth:`trace` in limb form: a (2, 8, trace_length)
+        uint32 array (:func:`stark_tpu_torch.ops.limbs.pack_trace`)."""
+        native = _native_fieldvec()
+        if native is not None:
+            return native.fib_trace_limbs(seed_a.value, seed_b.value, self.num_steps)
+        a, b = seed_a.value, seed_b.value
+        first, second = [a], [b]
+        for _ in range(self.num_steps):
+            a, b = (a + b) % P, a
+            first.append(a)
+            second.append(b)
+        return np.stack([pack(first), pack(second)])
 
     def result(self, seed_a: FieldElement, seed_b: FieldElement) -> FieldElement:
         return self.trace(seed_a, seed_b)[-1][0]
@@ -118,8 +150,8 @@ class FibonacciStark:
     ) -> Tuple[FieldElement, bytes]:
         with prove_span():
             with span("stark.entry.trace"):
-                trace = self.air.trace(seed_a, seed_b)
-            result = trace[-1][0]
+                trace = self.air.trace_limbs(seed_a, seed_b)
+            result = FieldElement(unpack(trace[0, :, -1])[0])
             boundary = self.air.boundary_constraints(seed_a, seed_b, result)
             proof = self.stark.prove(trace, self._constraints, boundary)
         return result, proof

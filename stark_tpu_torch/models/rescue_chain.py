@@ -39,6 +39,9 @@ monomial form — cubing ``(A - D(x))`` with A register-linear and D the
 degree-~28L constant interpolant via three univariate NTT products —
 because ``MPolynomial.pow(3)`` on a 28L-term dict would be O(T^2).
 
+A prove builds the trace in limb form (:meth:`RescueChainAir.trace_limbs`),
+never as rows of :class:`FieldElement`.
+
 :class:`RescueChainStark` runs on the CUDA card unless the caller names
 another torch device ("cpu" runs the plain versions); ``device=None``
 gives the host prover, with no backend.  ``backend=`` (the JAX models' keyword)
@@ -51,10 +54,13 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
+
 from ..field import FieldElement
 from ..mpoly import MPolynomial
 from ..ntt import poly_square_and_cube
 from ..ops.backend import TorchBackend
+from ..ops.limbs import pack_trace, unpack
 from ..params import RESCUE_N
 from ..poly import Polynomial
 from ..rescue_prime import RescuePrime
@@ -127,6 +133,18 @@ class RescueChainAir:
             rows.extend(seg)
             h = seg[-1][0]
         return rows
+
+    def trace_limbs(self, input_element: FieldElement) -> np.ndarray:
+        """The trace of :meth:`trace` in limb form, a (2, 8, trace_length)
+        uint32 array (:func:`stark_tpu_torch.ops.limbs.pack_trace`): the C
+        chain's words reshaped by numpy, with no Python int a value; the
+        Python golden model's rows packed where the library does not build."""
+        native = _native_rescue()
+        if native is None:
+            return pack_trace(self.trace(input_element), self.num_registers)
+        with span("stark.entry.trace/witness"):
+            pairs = native.chain_limb_pairs(input_element.value, self.num_hashes)
+        return native.trace_limbs(pairs)
 
     # -- AIR ------------------------------------------------------------------
 
@@ -308,8 +326,8 @@ class RescueChainStark:
     def prove(self, input_element: FieldElement) -> Tuple[FieldElement, bytes]:
         with prove_span():
             with span("stark.entry.trace"):
-                trace = self.air.trace(input_element)
-            output = trace[-1][0]
+                trace = self.air.trace_limbs(input_element)
+            output = FieldElement(unpack(trace[0, :, -1])[0])
             boundary = self.air.boundary_constraints(output)
             proof = self.stark.prove(trace, self.constraints, boundary)
         return output, proof

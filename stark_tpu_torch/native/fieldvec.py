@@ -55,6 +55,7 @@ _lib.fv_comb_term_mont.argtypes = [
     _u64p, _u64p, _u64p, _u64, _u64, _u64, _u64, _u64,
 ]
 _lib.fv_geom.argtypes = [_u64, _u64, _u64, _u64, _u64p, _u64]
+_lib.fv_fib_trace_limbs.argtypes = [_u64, _u64, _u64, _u64, _u64, ctypes.POINTER(ctypes.c_uint32)]
 
 _MASK = (1 << 64) - 1
 
@@ -157,6 +158,16 @@ def geom_series(base: int, start: int, n: int) -> np.ndarray:
     bl, bh = _split(base)
     sl, sh = _split(start)
     _lib.fv_geom(bl, bh, sl, sh, _ptr(out), n)
+    return out
+
+
+def fib_trace_limbs(a: int, b: int, steps: int) -> np.ndarray:
+    """The Fibonacci trace (a, b) -> (a + b, a) from the seeds (a, b)
+    over ``steps`` steps, as the prover's limb trace: a (2, 8, steps + 1)
+    uint32 array, one :func:`stark_tpu_torch.ops.limbs.pack` layout a
+    register."""
+    out = np.empty((2, 8, steps + 1), dtype=np.uint32)
+    _lib.fv_fib_trace_limbs(*_split(a), *_split(b), steps, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
     return out
 
 

@@ -15,6 +15,11 @@ The numpy helpers (``pack``, ``unpack``, ``pack_be17``, ``limbs_of`` and
 the table builders) are the JAX package's host-side limb code
 (``stark_tpu/ops/limbs.py``, ``ops/ntt.py``, ``ops/fold.py``), carried
 here so that the port needs nothing from that package.
+
+A trace in limb form is a ``(registers, 8, rows)`` uint32 array of
+canonical residues, register s's column in ``pack``'s layout at slice s:
+the form the models hand to :meth:`stark_tpu_torch.stark.Stark.prove`.
+``pack_trace`` and ``unpack_trace`` convert it from and to rows.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..field import FieldElement
 from ..params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, P, R_MOD_P
 
 
@@ -48,6 +54,18 @@ def unpack(arr) -> List[int]:
     u16 = np.ascontiguousarray((a & LIMB_MASK).T.astype("<u2"))  # (N, 8)
     buf = u16.tobytes()
     return [int.from_bytes(buf[16 * i : 16 * i + 16], "little") for i in range(n)]
+
+
+def pack_trace(rows: Sequence[Sequence[FieldElement]], num_registers: int) -> np.ndarray:
+    """Trace rows -> the limb trace: a ``(num_registers, 8, rows)`` uint32
+    array, register s's column packed into slice s."""
+    return np.stack([pack([row[s].value for row in rows]) for s in range(num_registers)])
+
+
+def unpack_trace(trace: np.ndarray) -> List[List[FieldElement]]:
+    """The limb trace -> new trace rows (the inverse of :func:`pack_trace`)."""
+    columns = [unpack(register) for register in trace]
+    return [[FieldElement(v) for v in row] for row in zip(*columns)]
 
 
 @lru_cache(maxsize=1)

@@ -27,7 +27,7 @@ caches for that statement and for the first launch of each kernel:
 :func:`stark_precompile_jobs` lists these for one statement as phases of
 named jobs, each through the Stark's and its core's own methods, so that
 they fill whatever core the Stark has: the tables first, then the device
-prove itself on a trace of zeros (``Stark._prove_device`` with
+prove itself on a limb trace of zeros (``Stark._prove_device`` with
 ``dry_run``: zero randomness, no degree check), which builds the rest
 (fold tables, K11's program, the interpolation's plans) and launches
 every kernel the prove launches.  :func:`precompile_stark` runs the
@@ -49,7 +49,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from ..params import NUM_LIMBS
 
 Job = Tuple[str, Callable[[], object]]
 
@@ -140,7 +143,7 @@ def stark_precompile_jobs(stark, transition_constraints, trace_length: int, boun
         # the prove's shapes and transcript lengths, and the allocations
         # of its working set, which the caching allocator then keeps
         zero = FieldElement(0)
-        trace = [[zero] * num_registers for _ in range(trace_length)]
+        trace = np.zeros((num_registers, NUM_LIMBS, trace_length), np.uint32)
         cells = [(cycle, register, zero) for cycle, register, _ in boundary or ()]
         return stark._prove_device(trace, tcs, cells, dry_run=True)
 

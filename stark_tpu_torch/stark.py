@@ -37,8 +37,9 @@ and the proof bytes equal the host prover's on the same randomness.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .field import FieldElement
@@ -46,7 +47,7 @@ from .fri import Fri
 from .hashing import blake2b_256
 from .merkle import MerkleTree, verify as merkle_verify
 from .mpoly import MPolynomial
-from .params import P, TRANSITION_CONSTRAINTS_DEGREE
+from .params import NUM_LIMBS, P, TRANSITION_CONSTRAINTS_DEGREE
 from .poly import Polynomial
 from .proof_stream import ProofStream
 from .rng import RandomBytes, os_random_bytes
@@ -59,6 +60,10 @@ from .serialization import (
 )
 
 BoundaryCondition = Tuple[int, int, FieldElement]
+
+#: a trace: rows of one FieldElement a register, or the limb trace, a
+#: (registers, 8, rows) uint32 array (:mod:`stark_tpu_torch.ops.limbs`)
+Trace = Union[Sequence[Sequence[FieldElement]], np.ndarray]
 
 #: AIR dict sizes above this use the grouped verifier evaluation
 #: (per-point dictionary walks scale with the lifted interpolant degree)
@@ -1230,7 +1235,7 @@ class Stark:
 
     def _prove_device(
         self,
-        trace: Sequence[Sequence[FieldElement]],
+        trace: Trace,
         transition_constraints: Sequence[MPolynomial],
         boundary: Sequence[BoundaryCondition],
         dry_run: bool = False,
@@ -1241,27 +1246,42 @@ class Stark:
         FRI folds.  Host crossings: one digit matrix per committed codeword
         (Merkle leaves are host/native-C work) and the opened leaves.
 
+        The trace's limb form is uploaded as it is, a register at a time,
+        when the device interpolates it (more than 256 rows); rows are
+        packed into limbs there first (counted in
+        ``profiling.PACKED_ROW_TRACES``).  The host interpolation takes
+        rows, made from the limb form there.
+
         ``dry_run`` (``precompile``'s last job): zero bytes in place of the
         rng, which is not read, and no check that the transition quotients
         meet their degree bounds, so that a trace of zeros runs every
         stage; its bytes are no proof."""
-        from .utils.profiling import Timer
+        from .ops.limbs import pack_trace, unpack_trace
+        from .utils import profiling
 
         rng = (lambda k: bytes(k)) if dry_run else self.rng
-        prof = Timer("protocol")
+        prof = profiling.Timer("protocol")
         self.last_profile = prof
         proof_stream = ProofStream()
         with prof.region("trace_copy"):
-            trace = [list(row) for row in trace]
+            # the device trace: the limb form as it came, or a new list of
+            # the rows, which the randomizer rows extend
+            limb_form = isinstance(trace, np.ndarray)
+            if not limb_form:
+                trace = list(trace)
 
         with prof.region("randomizer_rows"):
-            for _ in range(self.num_randomizers):
-                trace.append(
-                    [
-                        FieldElement.sample(rng(17))
-                        for _ in range(self.num_registers)
-                    ]
+            randomizer_rows = [
+                [FieldElement.sample(rng(17)) for _ in range(self.num_registers)]
+                for _ in range(self.num_randomizers)
+            ]
+            if limb_form:
+                trace = np.concatenate(
+                    [trace, pack_trace(randomizer_rows, self.num_registers)], axis=2
                 )
+            else:
+                trace.extend(randomizer_rows)
+        num_rows = trace.shape[2] if limb_form else len(trace)
 
         with prof.region("core"):
             core = self._device_core()
@@ -1294,24 +1314,28 @@ class Stark:
         # entirely on the device (device chirp interpolation + pointwise
         # eval-space division by the boundary zeroifier; exact division
         # makes the codewords bit-identical to the host polynomial path)
-        dev_interp = len(trace) > 256 and hasattr(core, "extend_mont")
+        dev_interp = num_rows > 256 and hasattr(core, "extend_mont")
         with prof.region("trace_interpolation"):
             if dev_interp:
                 from .ops import cuda_field as cf
                 from .ops.geometric_device import device_geometric_interpolate
-                from .ops.limbs import from_numpy, pack
+                from .ops.limbs import from_numpy
 
+                if not limb_form:
+                    profiling.PACKED_ROW_TRACES += 1
+                    trace = pack_trace(trace, self.num_registers)
                 trace_polynomials = []
                 for s in range(self.num_registers):
-                    column = [trace[c][s].value for c in range(len(trace))]
                     # REDC(a * R^2) = a * R: one K10 product on the card
-                    col_mont = cf.to_mont(from_numpy(pack(column), core.device))
+                    col_mont = cf.to_mont(from_numpy(trace[s], core.device))
                     trace_polynomials.append(
                         device_geometric_interpolate(
                             col_mont, 1, self.omicron.value
                         )
                     )
             else:
+                if limb_form:
+                    trace = unpack_trace(trace)
                 trace_domain = self.omicron_domain[: len(trace)]
                 trace_polynomials = []
                 for s in range(self.num_registers):
@@ -1400,7 +1424,7 @@ class Stark:
 
         with prof.region("degree_bounds"):
             tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
-            bq_bounds = self.boundary_quotient_degree_bounds(len(trace), boundary)
+            bq_bounds = self.boundary_quotient_degree_bounds(num_rows, boundary)
             worst = max(tq_bounds + bq_bounds)
             if worst > max_degree:
                 raise ValueError(
@@ -1498,14 +1522,33 @@ class Stark:
 
     def prove(
         self,
-        trace: Sequence[Sequence[FieldElement]],
+        trace: Trace,
         transition_constraints: Sequence[MPolynomial],
         boundary: Sequence[BoundaryCondition],
     ) -> bytes:
+        """The proof of ``trace`` (without its randomizer rows): rows of
+        ``num_registers`` elements, or the limb trace, a
+        ``(num_registers, 8, rows)`` uint32 array of canonical residues
+        (:func:`stark_tpu_torch.ops.limbs.pack_trace`).  Both forms give
+        the same bytes; the device pipeline takes the limb form without
+        packing, the host prover turns it into rows."""
+        if isinstance(trace, np.ndarray) and (
+            trace.dtype != np.uint32 or trace.ndim != 3
+            or trace.shape[:2] != (self.num_registers, NUM_LIMBS)
+        ):
+            raise ValueError(
+                f"a limb trace is a ({self.num_registers}, {NUM_LIMBS}, rows) "
+                f"uint32 array, not {trace.dtype} of shape {trace.shape}"
+            )
         if self._use_device_pipeline():
             return self._prove_device(trace, transition_constraints, boundary)
+        from .ops.limbs import unpack_trace
+
         proof_stream = ProofStream()
-        trace = [list(row) for row in trace]
+        if isinstance(trace, np.ndarray):
+            trace = unpack_trace(trace)
+        else:
+            trace = [list(row) for row in trace]
 
         # append randomizer rows (ZK; reference: stark.rs:237-253)
         for _ in range(self.num_randomizers):

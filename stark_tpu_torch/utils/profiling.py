@@ -10,7 +10,8 @@ kernels and copies; and a ``gc.callbacks`` hook times the collector
 ``stark.gc.gen1`` / ``stark.gc.gen2`` nested in whatever range is open.
 Every range is also kept in :data:`RANGES`, on the host's monotonic clock,
 for a reader that sees the profiler's results but not the program's ranges
-in them.
+in them.  :data:`PACKED_ROW_TRACES` counts the device proves handed their
+trace as rows, which the prover packs into limbs on the host.
 
 Tracing is on inside :func:`traced`, and for each model's prove
 (:func:`prove_span`) that starts while a ``torch.profiler`` trace records:
@@ -148,11 +149,18 @@ class Collector:
 #: the collector's runs since tracing last began
 COLLECTOR = Collector()
 
+#: device proves whose trace came as rows and was packed into limbs on the
+#: host (:meth:`stark_tpu_torch.stark.Stark._prove_device`), since the
+#: process started or tracing last began: a plain count, traced or not
+PACKED_ROW_TRACES = 0
+
 
 def reset() -> None:
-    """Clear :data:`COLLECTOR` and :data:`RANGES`."""
+    """Clear :data:`COLLECTOR`, :data:`RANGES` and :data:`PACKED_ROW_TRACES`."""
+    global PACKED_ROW_TRACES
     COLLECTOR.reset()
     RANGES.clear()
+    PACKED_ROW_TRACES = 0
 
 
 def _on() -> None:

@@ -10,6 +10,9 @@ package's host prover, and the port's CLI against the JAX CLI.
   forced (its floor lowered to 512 points) on ``device="cpu"`` (the plain
   kernel versions): proof bytes equal the JAX host prover's; the chain
   proof also through the grouped big-AIR verifier;
+* ``RescueChainStark(16)`` (448 rows: the device interpolates its trace):
+  the model's limb trace gives the bytes of its rows handed to
+  ``Stark.prove``, and only the rows are packed on the host;
 * the CLI, in process: prove / verify round trips of the rescue, mimc
   and rescue-chain models on ``--device cpu`` with the JAX CLI's proof
   bytes, the refusal of cross-model flags, and ``hash`` and ``inspect``
@@ -36,6 +39,7 @@ from stark_tpu_torch.models.mimc import MimcStark
 from stark_tpu_torch.models.rescue_chain import RescueChainStark
 from stark_tpu_torch.models.rescue_stark import RescueStark
 from stark_tpu_torch.rng import DeterministicRandom
+from stark_tpu_torch.utils import profiling
 
 # The suite runs several pytest-xdist workers side by side; more than one
 # torch thread per worker oversubscribes the cores, and the threads'
@@ -94,6 +98,28 @@ def test_rescue_chain_device_pipeline_equals_the_jax_host_prover(monkeypatch):
     assert host.verify(output, proof)
     assert model.verify(output, proof)  # grouped, device gathers
     assert not model.verify(output + FieldElement(1), proof)
+
+
+def test_rescue_chain_limb_trace_proves_the_row_trace_proof(monkeypatch):
+    def model():
+        m = RescueChainStark(16, device="cpu", rng=DeterministicRandom(21))
+        m.stark.backend.device_prover_min = 512
+        assert m.stark._use_device_pipeline()
+        return m
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the device prove called the host trace interpolation")
+
+    monkeypatch.setattr(port_stark.Stark, "_interpolate_trace", refused)
+    limbs, rows = model(), model()
+    packed = profiling.PACKED_ROW_TRACES
+    output, proof = limbs.prove(FieldElement(77))
+    assert profiling.PACKED_ROW_TRACES == packed
+    trace = rows.air.trace(FieldElement(77))
+    assert len(trace) == 448 and output == trace[-1][0]
+    assert rows.stark.prove(trace, limbs.constraints, rows.air.boundary_constraints(output)) == proof
+    assert profiling.PACKED_ROW_TRACES == packed + 1
+    assert limbs.verify(output, proof)
 
 
 # model -> (prove's flags, verify's flags)

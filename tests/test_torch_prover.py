@@ -6,7 +6,15 @@
   floor) proved through the port's device pipeline with its plain kernel
   versions, its trace interpolated by the device arm — byte-identical to
   the ``stark_tpu`` host proof on the same seed, accepted by the host
-  verifier, a wrong claim rejected;
+  verifier, a wrong claim rejected, none of its trace packed on the host;
+* fib-300 through the device interpolation in each form of its trace
+  (the model's limb trace from the host C library or from Python ints,
+  and rows, the only form packed on the host and counted) byte-identical
+  to the port's host prover;
+* the limb trace's producers and conversions: the C recurrence and the
+  Python one against ``pack`` of ``FibonacciAir.trace``, rows -> limbs ->
+  rows, and the paths that prove a limb trace as rows (the host prover,
+  a device prove of at most 256 rows) giving the rows' bytes;
 * the port's host prover (no backend) byte-identical to ``stark_tpu``'s;
 * the port's wiring (its own ``Fri``, its own prover core) and its CLI;
 * that the port is self-contained: no module of it, and not
@@ -17,6 +25,7 @@ Tolerance: none (proof bytes and limbs are compared exactly).
 """
 
 import ast
+import gc
 import json
 import os
 import subprocess
@@ -39,13 +48,15 @@ from stark_tpu.params import GENERATOR, P, R_MOD_P
 from stark_tpu.rng import DeterministicRandom
 from stark_tpu_torch.field import FieldElement as PortFieldElement
 from stark_tpu_torch.fri import Fri
-from stark_tpu_torch.models.fibonacci import FibonacciStark
+from stark_tpu_torch.models import fibonacci
+from stark_tpu_torch.models.fibonacci import FibonacciAir, FibonacciStark
 from stark_tpu_torch.ops import backend as tbackend
 from stark_tpu_torch.ops.device_prover import DeviceProverCore
 from stark_tpu_torch.ops.fold import fold_mont
-from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, to_numpy
+from stark_tpu_torch.ops.limbs import _fold_tables, from_numpy, pack_trace, to_numpy, unpack_trace
 from stark_tpu_torch.rng import DeterministicRandom as PortRandom
 from stark_tpu_torch.stark import Stark
+from stark_tpu_torch.utils import profiling
 
 # The suite runs several pytest-xdist workers side by side; more than one
 # torch thread per worker oversubscribes the cores, and the threads'
@@ -101,39 +112,130 @@ def test_backend_refuses_a_missing_card(monkeypatch):
         tbackend.TorchBackend("cuda")
 
 
+def _refuse_host_interpolation(*args, **kwargs):
+    raise AssertionError("the device prove called the host trace interpolation")
+
+
 @pytest.fixture(scope="module")
 def proofs():
     """fib-1000 from the JAX host prover and from the port's device
-    pipeline; the port's host trace interpolation raises, so its prove
-    must take the device interpolation arm (more than 256 trace rows)."""
+    pipeline, with the count of row traces that prove packed; the port's
+    host trace interpolation raises, so its prove must take the device
+    interpolation arm (more than 256 trace rows)."""
     seed = 11
     host = HostFibonacciStark(1000, rng=DeterministicRandom(seed))
     assert host.stark.fri_domain_length == 8192
     assert not host.stark._use_device_pipeline()
     host_result, host_proof = host.prove(A, B)
     port = FibonacciStark(1000, device="cpu", rng=PortRandom(seed))
-
-    def host_interpolation(*args, **kwargs):
-        raise AssertionError("the device prove called the host trace interpolation")
-
+    packed = profiling.PACKED_ROW_TRACES
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(Stark, "_interpolate_trace", host_interpolation)
+        mp.setattr(Stark, "_interpolate_trace", _refuse_host_interpolation)
         result, proof = port.prove(PA, PB)
-    return host_result, host_proof, port, result, proof
+    return host_result, host_proof, port, result, proof, profiling.PACKED_ROW_TRACES - packed
 
 
 def test_fibonacci_proof_bytes_equal_host(proofs):
-    host_result, host_proof, port, result, proof = proofs
+    host_result, host_proof, port, result, proof, packed = proofs
     assert port.stark._use_device_pipeline()
     assert result.value == host_result.value
     assert proof == host_proof
+    assert packed == 0  # the model's limb trace, uploaded as it came
     prof = port.stark.last_profile
     for stage in ("combination", "fri", "bq_merkle", "openings", "trace_interpolation"):
         assert stage in prof.totals
 
 
+@pytest.fixture(scope="module")
+def host_300():
+    """fib-300's proof from the port's host prover (held to the JAX
+    package's by test_port_host_prover_equals_the_jax_package_host_prover)."""
+    return FibonacciStark(300, device=None, rng=PortRandom(5)).prove(PA, PB)[1]
+
+
+@pytest.mark.parametrize("form", ["limbs", "limbs-python", "rows"])
+def test_each_trace_form_gives_the_host_proof(host_300, form, monkeypatch):
+    """fib-300 (309 rows: the device interpolates the trace) from the
+    model's limb trace (the host C library's, or Python ints with the
+    library taken away) and from rows handed to ``Stark.prove``: the host
+    prover's bytes.  Only the rows are packed on the host, counted once in
+    ``profiling.PACKED_ROW_TRACES``, which off the profiler enters no
+    range and installs no hook."""
+    def refused(*args, **kwargs):
+        raise AssertionError("entered while off")
+
+    port = FibonacciStark(300, device="cpu", rng=PortRandom(5))
+    port.stark.backend.device_prover_min = 4096
+    assert port.stark._use_device_pipeline()
+    monkeypatch.setattr(Stark, "_interpolate_trace", _refuse_host_interpolation)
+    monkeypatch.setattr(profiling, "record_function", refused)
+    monkeypatch.setattr(profiling, "_on", refused)
+    callbacks = list(gc.callbacks)
+    packed = profiling.PACKED_ROW_TRACES
+    if form == "rows":
+        rows = port.air.trace(PA, PB)
+        proof = port.stark.prove(rows, port._constraints, port.air.boundary_constraints(PA, PB, rows[-1][0]))
+    else:
+        if form == "limbs-python":
+            monkeypatch.setattr(fibonacci, "_native_fieldvec", lambda: None)
+        proof = port.prove(PA, PB)[1]
+    assert proof == host_300
+    assert profiling.PACKED_ROW_TRACES - packed == (form == "rows")
+    assert gc.callbacks == callbacks
+
+
+@pytest.mark.parametrize("seeds", [(0, 1), (1, 0), (P - 1, P - 2), (P - 1, P - 1), tuple(_values(5, 9)[3:])],
+                         ids=["0-1", "1-0", "p-1-p-2", "p-1-p-1", "random"])
+def test_the_fibonacci_limb_trace_is_the_packed_rows(seeds, monkeypatch):
+    """The C recurrence and the Python one both write ``pack`` of each
+    column of ``FibonacciAir.trace``; near p the sum wraps past 2^128."""
+    from stark_tpu_torch.native import fieldvec
+
+    air = FibonacciAir(300)
+    a, b = (PortFieldElement(v) for v in seeds)
+    want = pack_trace(air.trace(a, b), 2)
+    native = fieldvec.fib_trace_limbs(a.value, b.value, 300)
+    monkeypatch.setattr(fibonacci, "_native_fieldvec", lambda: None)
+    python = air.trace_limbs(a, b)
+    assert native.dtype == python.dtype == np.uint32 and native.shape == python.shape == (2, 8, 301)
+    assert np.array_equal(native, want) and np.array_equal(python, want)
+
+
+def test_rows_to_limbs_to_rows_is_the_identity():
+    rows = FibonacciAir(300).trace(PortFieldElement(P - 1), PortFieldElement(5))
+    limbs = pack_trace(rows, 2)
+    assert [[v.value for v in row] for row in unpack_trace(limbs)] == [[v.value for v in row] for row in rows]
+    assert np.array_equal(pack_trace(unpack_trace(limbs), 2), limbs)
+
+
+@pytest.mark.parametrize("path", ["host", "short"])
+def test_the_row_paths_prove_a_limb_trace_as_its_rows(path):
+    """The host prover, and a device prove of at most 256 rows (host
+    interpolation), turn a limb trace into rows: the rows' bytes."""
+    steps = 300 if path == "host" else 100
+
+    def proof(form):
+        port = FibonacciStark(steps, device=None if path == "host" else "cpu", rng=PortRandom(4))
+        if path == "short":
+            port.stark.backend.device_prover_min = 1024
+        assert port.stark._use_device_pipeline() == (path == "short")
+        rows = port.air.trace(PA, PB)
+        trace = rows if form == "rows" else port.air.trace_limbs(PA, PB)
+        return port.stark.prove(trace, port._constraints, port.air.boundary_constraints(PA, PB, rows[-1][0]))
+
+    assert proof("limbs") == proof("rows")
+
+
+def test_a_limb_trace_of_another_shape_is_refused():
+    port = FibonacciStark(10, device=None)
+    boundary = port.air.boundary_constraints(PA, PB, PA)
+    for bad in (np.zeros((3, 8, 11), np.uint32), np.zeros((2, 8, 11), np.int64), np.zeros((2, 8), np.uint32)):
+        with pytest.raises(ValueError, match="limb trace"):
+            port.stark.prove(bad, port._constraints, boundary)
+
+
 def test_fibonacci_proof_verifies_and_wrong_claim_fails(proofs):
-    _, _, port, result, proof = proofs
+    _, _, port, result, proof, _ = proofs
     host_verifier = HostFibonacciStark(1000)
     assert host_verifier.verify(A, B, FieldElement(result.value), proof)
     assert port.verify(PA, PB, result, proof)

@@ -3,7 +3,8 @@
 * ``RescuePrime``: hashes, traces, boundary and transition constraints
   equal ``stark_tpu.rescue_prime.RescuePrime``'s;
 * the host library's hash chain (``csrc/host/rescue.c``) equals the
-  port's Python golden model chained by hand;
+  port's Python golden model chained by hand, and its words reshaped
+  into the limb trace equal ``pack`` of its Python ints;
 * the plain batched permutation (``ops/rescue.py``, through the wrapper of
   the R1 kernel on CPU tensors) equals the JAX host ``RescuePrime.hash`` /
   ``trace`` at B = 1, 5 and 33;
@@ -92,6 +93,19 @@ def test_native_chain_matches_the_python_golden_model():
     got = rescue_native.chain_trace(x, 3)
     assert got.shape == (3 * (RESCUE_N + 1), RESCUE_M)
     assert got.tolist() == rows
+
+
+@pytest.mark.parametrize("x", _inputs(4, 3), ids=["0", "1", "p-1", "random"])
+def test_the_chain_limb_trace_is_the_packed_chain_ints(x):
+    from stark_tpu_torch.models.rescue_chain import RescueChainAir
+    from stark_tpu_torch.native import rescue_native
+
+    ints = rescue_native.chain_trace(x, 3)
+    want = np.stack([pack(list(ints[:, s])) for s in range(RESCUE_M)])
+    got = rescue_native.trace_limbs(rescue_native.chain_limb_pairs(x, 3))
+    assert got.dtype == np.uint32 and got.shape == (RESCUE_M, 8, 3 * (RESCUE_N + 1))
+    assert np.array_equal(got, want)
+    assert np.array_equal(RescueChainAir(3).trace_limbs(FieldElement(x)), want)
 
 
 @pytest.mark.parametrize("b", [1, 5, 33])

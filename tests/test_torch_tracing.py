@@ -2,7 +2,7 @@
 a prove enters no profiler range and hooks nothing; under ``traced()``, or
 in a prove that starts while a ``torch.profiler`` trace records, the
 prove's regions and spans, and the collector's full runs, are ranges of
-the running trace."""
+the running trace; ``reset()`` also zeroes ``PACKED_ROW_TRACES``."""
 
 import gc
 import json
@@ -123,6 +123,14 @@ def test_traced_restores_the_callbacks_on_exit_and_on_an_exception():
             raise RuntimeError("inside")
     assert gc.callbacks == before
     assert profiling.span("x") is profiling.span("y")
+
+
+def test_reset_zeroes_the_packed_row_trace_count(monkeypatch):
+    """The count of device proves handed rows (test_torch_prover and
+    test_torch_models count them) starts again from 0 where tracing does."""
+    monkeypatch.setattr(profiling, "PACKED_ROW_TRACES", 3)
+    profiling.reset()
+    assert profiling.PACKED_ROW_TRACES == 0
 
 
 def test_the_chain_air_build_and_witness_record_their_parts(tmp_path):
